@@ -1,0 +1,93 @@
+"""The CUDA kernel against its plain PyTorch version, on the card.
+
+Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
+without one.  This file imports no JAX, so it also runs on the machine with
+the card, which has none (from the repository root)::
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ldpc_tpu_torch.codes import QCCode, near_earth_code
+from ldpc_tpu_torch.ops import cuda_static
+from ldpc_tpu_torch.ops.cuda_static import (make_static_sweep_decoder,
+                                            minsum_flooding_reference)
+from ldpc_tpu_torch.ops.plan import DecodePlan
+from ldpc_tpu_torch.sim.evaluate import make_staged_decoder_device
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _llr(n, snrs, per, seed, device):
+    rng = np.random.default_rng(seed)
+    rows = [-1.0 + np.sqrt(0.5 / 10 ** (s / 10)) *
+            rng.standard_normal((per, n)) for s in snrs]
+    llr = np.concatenate(rows).astype(np.float32)
+    llr[0, :3] = [np.nan, np.inf, -np.inf]
+    return torch.from_numpy(llr).to(device)
+
+
+def _random_code(seed, z, mb, nb):
+    rng = np.random.default_rng(seed)
+    shifts = []
+    for _ in range(mb):
+        row = [tuple(sorted(rng.choice(z, size=int(rng.integers(0, 3)),
+                                       replace=False).tolist()))
+               for _ in range(nb)]
+        if all(len(b) == 0 for b in row):
+            row[0] = (int(rng.integers(z)),)
+        shifts.append(tuple(row))
+    return QCCode(z=z, shifts=tuple(shifts), name=f"rand{seed}")
+
+
+@pytest.mark.parametrize("code", [near_earth_code(),
+                                  _random_code(7, 21, 2, 6),
+                                  _random_code(8, 13, 3, 7)],
+                         ids=lambda c: c.name)
+def test_kernel_matches_plain_version(cuda, code):
+    """Same LLRs, same bf16 rounding points and f32 order: every word
+    agrees exactly (the contract asks it of converged words)."""
+    llr = _llr(code.n, (1.0, 2.5, 3.0, 3.4, 4.0), 64, seed=3, device=cuda)
+    dec = make_static_sweep_decoder(code, 20, device=cuda)
+    before = cuda_static.launches
+    got = dec(llr)
+    assert cuda_static.launches == before + 1
+    want = minsum_flooding_reference(llr, DecodePlan.from_code(code), 20)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+
+
+def test_staged_equals_single_pass_on_card(cuda):
+    code = near_earth_code()
+    llr = _llr(code.n, (3.0, 3.4), 256, seed=5, device=cuda)
+    single = make_static_sweep_decoder(code, 50, device=cuda)(llr)
+    for cap in (64, 512):
+        staged = make_staged_decoder_device(code, 50, redo_capacity=cap,
+                                            device=cuda)
+        for a, b in zip(staged(llr), single):
+            assert torch.equal(a, b)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    code = near_earth_code()
+    dec = make_static_sweep_decoder(code, 4, device=cuda)
+    with pytest.raises(ValueError):
+        dec(torch.zeros(2, code.n))                      # on the CPU
+    with pytest.raises(TypeError):
+        dec(torch.zeros(2, code.n, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        dec(torch.zeros(code.n, 2, device=cuda).t())     # not contiguous
+    e, it, ok = dec(torch.zeros(0, code.n, device=cuda))
+    assert e.shape == (0,)
