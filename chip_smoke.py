@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -7,12 +7,13 @@ Phases, each printing its elapsed seconds; any failure exits non-zero with
 no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's view.
-2. build   nvcc builds ldpc_tpu_torch/csrc/minsum_flooding.cu (ptxas report).
-3. kernel  the CUDA kernel against its plain PyTorch version on the same
-           LLRs: 2,048 words at 3.0 and 3.4 dB (50 iterations) and the main
-           path's own shapes (32,768 words at 12 and at 50 iterations).
-           Converged words must agree exactly; times with CUDA events.  The
-           staged cascade must equal a straight 50-iteration decode.
+2. build   nvcc builds ldpc_tpu_torch/csrc/flooding.cu (ptxas report).
+3. kernel  min-sum bf16 (the near-earth main path's variant) against its
+           plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
+           3.4 dB (50 iterations) and the main path's own shapes (32,768
+           words at 12 and at 50 iterations).  Converged words must agree
+           exactly; times with CUDA events.  The staged cascade must equal
+           a straight 50-iteration decode.
 4. main    near-earth (8176, 7154), B = 32,768, 3.0/3.2/3.4/3.6 dB, the
            12 -> 50 staged cascade, one warm and three timed batches a point:
            decoded bit/s, BER, FER, iterations, cascade branch, launches.
@@ -20,7 +21,24 @@ no result line:
            JAX package's measured one.
 6. profile one more batch at 3.0 and 3.4 dB under torch.profiler: device
            time by kernel, device busy share.
-7. the kernels line, the card line again, and the result line.
+7. variants every (kind, store) of the kernel against its plain version on
+           the same LLRs, 50 iterations: 802.11n rate 1/2 and 5/6 (2,048
+           words each, in each one's waterfall), near-earth (512 words,
+           timed: the largest state a block holds) and a code with check
+           degree > 32 (1,024 words); then each variant's time at the
+           evaluate path's shape (32,768 802.11n rate-5/6 words, 12
+           iterations) beside its plain version's and its bound.
+8. evaluate the evaluate entry point on the card (ldpc_tpu_torch.cli and
+           evaluate_code, engine "cuda", staged 12 -> 50, 32,768 words a
+           point in one batch): (a) `bench wifi`; (b) the sum-product
+           waterfall with f32 state, FER held against the JAX package's;
+           (c) normalized and offset min-sum, bf16 state; (d) the other
+           (kind, store) pairs once each.
+9. torch   the torch engine: `probe` on near-earth against the kernel with
+           f32 state (exact), and a 1,024-word 802.11n rate-1/2 decode on the
+           card against the same decode on the CPU (exact) and against the
+           kernel (reported).
+10. the kernels line, the card line again, and the result line.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
 no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/).
@@ -28,6 +46,7 @@ no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/).
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -37,11 +56,16 @@ import traceback
 import numpy as np
 import torch
 
-from ldpc_tpu_torch.codes import near_earth_code
+from ldpc_tpu_torch import cli
+from ldpc_tpu_torch.codes import QCCode, near_earth_code, wifi_code
 from ldpc_tpu_torch.ops import cuda_static
-from ldpc_tpu_torch.ops.cuda_static import (make_static_sweep_decoder,
-                                            minsum_flooding_reference)
-from ldpc_tpu_torch.sim.evaluate import (make_staged_decoder_device,
+from ldpc_tpu_torch.ops.cuda_static import (KINDS, STORES,
+                                            flooding_reference,
+                                            make_static_sweep_decoder)
+from ldpc_tpu_torch.sim.channel import epsilon_probe
+from ldpc_tpu_torch.sim.evaluate import (default_redo_capacity,
+                                         evaluate_code,
+                                         make_staged_decoder_device,
                                          make_staged_sweep_device, transmit)
 from ldpc_tpu_torch.sim.stats import BerStatistics, wilson_interval
 from ldpc_tpu_torch.utils.device import device_info
@@ -65,16 +89,55 @@ BUDGET_S = 600          # half the 1200 s limit of a chip run
 JAX_FER = {3.0: (0.86767578125, 0.8624009517018465, 0.8727782313822761),
            3.4: (0.02288818359375, 0.02070762656167772, 0.025292427527202416)}
 
+# Phase 7: words and SNR (dB) of each check, in each code's waterfall
+# (802.11n: sum-product's waterfall lies lower than the min-sum family's).
+VARIANT_WORDS = {"wifi": 2048, "near-earth": 512, "highdeg": 1024}
+VARIANT_SNR = {("r1/2", False): -1.5, ("r1/2", True): -2.0,
+               ("r5/6", False): 2.5, ("r5/6", True): 2.25,
+               ("near-earth", False): 3.0, ("near-earth", True): 2.6,
+               ("highdeg", False): 3.0, ("highdeg", True): 3.0}
+SP_MISMATCH_LIMIT = 1e-3   # sum-product: mismatched words / words checked
+TIMING_SNR = {False: 3.0, True: 2.5}   # the evaluate path's shape, r5/6
+TORCH_WORDS = 1024          # phase 9: 802.11n rate-1/2 words
+
+# Phase 8b: FER of the JAX package's Pallas sum-product kernel, f32 state,
+# 8,192 words a point, and its 95% Wilson interval: docs/wifi_waterfall.json
+# ("rates" -> rate -> point), computed from its "fer" and "words".
+JAX_SP_FER = {(2 / 3, 0.0): (0.25806, 0.24870, 0.26764),
+              (3 / 4, 1.0): (0.34888, 0.33863, 0.35927),
+              (5 / 6, 2.0): (0.64001, 0.62956, 0.65034),
+              (5 / 6, 2.5): (0.05334, 0.04868, 0.05842)}
+WIFI_SEED = 460101          # wifiCUDA.testWifi's seed (cli bench wifi)
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# float32 operations per Tanner edge: phase A 8 (old c2v: select, sign;
-# v = t - c2v; |v|; two-min compare, m2 min, m1 min; sign test), phase B 3
-# (select, sign, add).
-OPS_A, OPS_B = 8, 3
+# float32 operations per Tanner edge and iteration, (phase A, phase B).
+# min-sum: phase A 8 (old c2v: select, sign; v = t - c2v; |v|; two-min
+# compare, m2 min, m1 min; sign test), phase B 3 (select, sign, add);
+# normalized adds one multiply and offset a subtract and a max wherever a
+# message is rebuilt.  Sum-product: phase A 14 plus 2 phi (the rebuild:
+# sub, 2 clip, mul, neg, sign, mul; v: sub; |v|, 2 clip, mul, neg; S add;
+# sign test), phase B 8 plus 1 phi.  One phi is a tanhf and a logf, counted
+# as an estimate of the f32 instructions they compile to: 12 for tanhf (an
+# exp2 and a reciprocal with their range reduction, or a short polynomial)
+# and 18 for logf (range reduction and a degree-8 polynomial).
+PHI_OPS = 12 + 18
+OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
+       "offset-min-sum": (10, 5),
+       "sum-product": (14 + 2 * PHI_OPS, 8 + PHI_OPS)}
 
-TPU_KERNEL = "ldpc_tpu/ops/pallas_static.py::_build_kernel"
-TPU_CALL = "ldpc_tpu/ops/pallas_static.py:170"
+SOURCE = "ldpc_tpu_torch/csrc/flooding.cu"
+TPU_CALL = "ldpc_tpu/ops/pallas_static.py:621"
+TPU_KERNEL = {
+    "min-sum": "B1 ldpc_tpu/ops/pallas_static.py:170 _build_kernel "
+               "(flooding, min-sum)",
+    "normalized-min-sum": "B2 ldpc_tpu/ops/pallas_static.py:344-362 _recon "
+                          "(normalized)",
+    "offset-min-sum": "B2 ldpc_tpu/ops/pallas_static.py:344-362 _recon "
+                      "(offset)",
+    "sum-product": "B4 ldpc_tpu/ops/pallas_static.py:379-428 _phi, "
+                   "_recon_sp, _row_pass_sp"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -107,6 +170,22 @@ def time_ms(fn, dev: torch.device, reps: int = 1, warm: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def timed_once(fn, dev: torch.device):
+    """(result, milliseconds) of one call, CUDA events on the card."""
+    sync(dev)
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return out, start.elapsed_time(stop)
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,18 +194,22 @@ def smi_line() -> str:
     return out[0]
 
 
-def llr_batch(b: int, snr: float, gen: torch.Generator, dev) -> torch.Tensor:
+def llr_batch(code: QCCode, b: int, snr: float, gen: torch.Generator, dev,
+              scale_llr: bool = False) -> torch.Tensor:
     snr_db = torch.full((b,), snr, dtype=torch.float32, device=dev)
-    return transmit(near_earth_code().n, snr_db, generator=gen)[0]
+    return transmit(code.n, snr_db, generator=gen, scale_llr=scale_llr)[0]
 
 
-def bound_ms(b: int, n: int, edges: int, iters, success,
-             max_iters: int) -> tuple[float, str]:
+def bound_ms(b: int, n: int, edges: int, iters, success, max_iters: int,
+             kind: str = "min-sum") -> tuple[float, str]:
     """Least time for this work on an H100: bytes (LLRs in, 12 B a word out)
     over HBM rate vs the f32 operations these words needed over peak."""
+    ops_a, ops_b = OPS[kind]
     it = iters.long().cpu()
-    phase_a = torch.where(success.cpu(), it + 1, torch.full_like(it, max_iters + 1))
-    ops = edges * (OPS_A * phase_a.sum().item() + OPS_B * (phase_a - 1).sum().item())
+    phase_a = torch.where(success.cpu(), it + 1,
+                          torch.full_like(it, max_iters + 1))
+    ops = edges * (ops_a * phase_a.sum().item() +
+                   ops_b * (phase_a - 1).sum().item())
     t_bytes = (b * n * 4 + b * 12) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -145,6 +228,17 @@ def compare(kern, plain) -> dict:
             "mismatched": int(diff.sum()), "max_abs_err": err}
 
 
+def high_degree_code() -> QCCode:
+    """Check degree 40-50 (> 32, two sign words per check): the code of
+    tests/test_pallas_static.py::test_static_kernel_high_degree_checks."""
+    rng = np.random.default_rng(11)
+    z, nb = 9, 20
+    row = tuple(tuple(sorted(rng.choice(z, size=int(rng.integers(2, 4)),
+                                        replace=False).tolist()))
+                for _ in range(nb))
+    return QCCode(z=z, shifts=(row,), name="highdeg")
+
+
 def phase_card(dev) -> str:
     smi = smi_line()
     print(smi, flush=True)
@@ -157,12 +251,13 @@ def phase_card(dev) -> str:
 
 def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
-    build("minsum_flooding")
-    rep = build_report("minsum_flooding")
-    log("build", f"minsum_flooding.cu built in {rep['seconds']:.1f} s "
+    build("flooding")
+    rep = build_report("flooding")
+    log("build", f"flooding.cu built in {rep['seconds']:.1f} s "
         f"(cached: {rep['cached']})")
     for line in rep["ptxas"].splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "bytes stack")):
+        if any(k in line for k in ("Compiling", "registers", "spill",
+                                   "bytes stack")):
             log("build", "ptxas " + line.strip())
     return rep
 
@@ -179,10 +274,10 @@ def phase_kernel(dev, code, gen) -> dict:
                3.0, MAX_ITERS)]
     timing = {}
     for label, b, snr, max_iters in cases:
-        llr = llr_batch(b, snr, gen, dev)
+        llr = llr_batch(code, b, snr, gen, dev)
         dec = make_static_sweep_decoder(code, max_iters, device=dev)
         kern = dec(llr)
-        plain = minsum_flooding_reference(llr, plan, max_iters)
+        plain = flooding_reference(llr, plan, max_iters)
         sync(dev)
         c = compare(kern, plain)
         for k in worst:
@@ -196,9 +291,9 @@ def phase_kernel(dev, code, gen) -> dict:
                                  "words")
         if b == BATCH:
             ms = time_ms(lambda: dec(llr), dev, reps=3)
-            plain_ms = time_ms(
-                lambda: minsum_flooding_reference(llr, plan, max_iters), dev,
-                warm=False)
+            plain_ms = time_ms(lambda: flooding_reference(llr, plan,
+                                                          max_iters),
+                               dev, warm=False)
             bnd, by = bound_ms(b, code.n, edges, kern[1], kern[2], max_iters)
             timing[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                              "bound_by": by}
@@ -208,29 +303,30 @@ def phase_kernel(dev, code, gen) -> dict:
     staged = make_staged_decoder_device(code, MAX_ITERS,
                                         phase1_iters=PHASE1_ITERS,
                                         redo_capacity=CHECK_WORDS * 3 // 16,
-                                        device=dev)
+                                        engine="cuda", device=dev)
     single = make_static_sweep_decoder(code, MAX_ITERS, device=dev)
     for snr in CHECK_SNRS:
-        llr = llr_batch(CHECK_WORDS, snr, gen, dev)
+        llr = llr_batch(code, CHECK_WORDS, snr, gen, dev)
         got, want = staged(llr), single(llr)
         if any(not torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"staged cascade != single pass at {snr} dB")
         log("kernel", f"staged == single pass at {snr} dB "
             f"(branch {staged.last_branches})")
     stage1 = timing[cases[2][0]]
-    return {"worst": worst, "timing": timing, "stage1": stage1}
+    return {"worst": worst, "timing": timing, "stage1": stage1,
+            "smem": cuda_static.smem_bytes(plan)}
 
 
 def phase_main(dev, code, gen) -> dict:
     step = make_staged_sweep_device(code, MAX_ITERS, phase1_iters=PHASE1_ITERS,
-                                    device=dev, generator=gen)
+                                    engine="cuda", device=dev, generator=gen)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     stats = BerStatistics(code.n)
     points = {}
-    cuda_static.launches = 0
+    cuda_static.launches.clear()
     for snr in SNR_POINTS:
-        before = cuda_static.launches
+        before = sum(cuda_static.launches.values())
         snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
         outs, secs, branches = [], [], []
         for t in range(1 + TIMED_BATCHES):
@@ -257,16 +353,17 @@ def phase_main(dev, code, gen) -> dict:
                        "frame_errors": fe, "words": words,
                        "avg_iterations": iters / words,
                        "branches": branches,
-                       "launches": cuda_static.launches - before}
+                       "launches": sum(cuda_static.launches.values()) - before}
         p = points[snr]
         log("main", f"{snr} dB: {p['bit_per_s']:.6g} bit/s (median "
             f"{med * 1e3:.2f} ms of {TIMED_BATCHES}), BER {p['ber']:.4e}, "
             f"FER {p['fer']:.5f}, avg iters {p['avg_iterations']:.3f}, "
             f"branch {branches}, launches {p['launches']}")
-    launches = cuda_static.launches
-    if launches == 0 or any(p["launches"] == 0 for p in points.values()):
-        raise AssertionError(f"main path launched the kernel {launches} "
-                             "times; a point ran without it")
+    launches = dict(cuda_static.launches)
+    if launches.get(("min-sum", "bfloat16"), 0) == 0 or any(
+            p["launches"] == 0 for p in points.values()):
+        raise AssertionError(f"main path launched {launches}; a point ran "
+                             "without the kernel")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     log("main", f"kernel launches {launches}; "
@@ -333,6 +430,269 @@ def phase_band(points: dict) -> None:
             raise AssertionError(f"FER at {snr} dB outside the JAX band")
 
 
+def phase_variants(dev, gen) -> dict:
+    """Every (kind, store) against its plain version; then each one's time
+    at the evaluate path's shape."""
+    codes = {"r1/2": wifi_code(1944, 1 / 2), "r5/6": wifi_code(1944, 5 / 6),
+             "near-earth": near_earth_code(), "highdeg": high_degree_code()}
+    out = {}
+    for kind in KINDS:
+        sp = kind == "sum-product"
+        for store in STORES:
+            row = {"checked": 0, "mismatched": 0, "mismatched_converged": 0,
+                   "max_abs_err": 0}
+            for cname, code in codes.items():
+                b = VARIANT_WORDS["wifi" if cname[0] == "r" else cname]
+                snr = VARIANT_SNR[(cname, sp)]
+                llr = llr_batch(code, b, snr, gen, dev, scale_llr=sp)
+                dec = make_static_sweep_decoder(code, MAX_ITERS, kind=kind,
+                                                store_dtype=store,
+                                                device=dev)
+                kern = dec(llr)
+                plain = flooding_reference(llr, dec.plan, MAX_ITERS,
+                                           kind=kind, store_dtype=store)
+                sync(dev)
+                c = compare(kern, plain)
+                row["checked"] += b
+                for k in ("mismatched", "mismatched_converged"):
+                    row[k] += c[k]
+                row["max_abs_err"] = max(row["max_abs_err"], c["max_abs_err"])
+                extra = ""
+                if cname == "near-earth":   # the largest state per block
+                    row["near_earth_ms"] = time_ms(lambda: dec(llr), dev)
+                    extra = (f"; kernel {row['near_earth_ms']:.3f} ms, "
+                             f"{cuda_static.smem_bytes(dec.plan, kind, store)}"
+                             " bytes of shared memory a block")
+                log("variants", f"{kind}/{store} {cname} {b} words {snr} dB: "
+                    f"{c['mismatched']} mismatched words, "
+                    f"{c['mismatched_converged']} converged, converged "
+                    f"{int(kern[2].sum())}/{b}{extra}")
+            # time at the evaluate path's first stage: 32,768 rate-5/6 words
+            code = codes["r5/6"]
+            llr = llr_batch(code, BATCH, TIMING_SNR[sp], gen, dev,
+                            scale_llr=sp)
+            dec = make_static_sweep_decoder(code, PHASE1_ITERS, kind=kind,
+                                            store_dtype=store, device=dev)
+            ms = time_ms(lambda: dec(llr), dev, reps=3)
+            kern = dec(llr)
+            plain, plain_ms = timed_once(
+                lambda: flooding_reference(llr, dec.plan, PHASE1_ITERS,
+                                           kind=kind, store_dtype=store), dev)
+            c = compare(kern, plain)
+            row["checked"] += BATCH
+            for k in ("mismatched", "mismatched_converged"):
+                row[k] += c[k]
+            row["max_abs_err"] = max(row["max_abs_err"], c["max_abs_err"])
+            bnd, by = bound_ms(BATCH, code.n, code.num_edges, kern[1],
+                               kern[2], PHASE1_ITERS, kind)
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                       smem=cuda_static.smem_bytes(dec.plan, kind, store),
+                       shape=f"{BATCH} words x {code.n} (802.11n r5/6), "
+                             f"{PHASE1_ITERS} iterations, "
+                             f"{TIMING_SNR[sp]} dB")
+            log("variants", f"{kind}/{store}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {bnd:.4f} ms ({by}) at "
+                f"{row['shape']}; {row['mismatched']} mismatched of "
+                f"{row['checked']} words checked")
+            limit = SP_MISMATCH_LIMIT * row["checked"] if sp else 0
+            if row["mismatched_converged"] > limit or (
+                    sp and row["mismatched"] > limit):
+                raise AssertionError(
+                    f"{kind}/{store}: {row['mismatched']} words differ "
+                    f"({row['mismatched_converged']} converged) of "
+                    f"{row['checked']}")
+            out[(kind, store)] = row
+    return out
+
+
+def _point_report(stats: BerStatistics, code: QCCode, snr: float,
+                  seconds: float) -> dict:
+    """bit/s, BER, FER and its Wilson interval, average iterations, and
+    the cascade branch of the point's batch (from its per-word counts)."""
+    sel = stats.column("snr") == snr
+    words = int(stats.column("weight")[sel].sum())
+    errs = int(stats.column("errors_decoded")[sel].sum())
+    fe = int(stats.column("frame_errors")[sel].sum())
+    it = stats.column("iterations")[sel]
+    ok = stats.column("success")[sel].astype(bool)
+    nfail = int((~(ok & (it <= PHASE1_ITERS))).sum())
+    cap = default_redo_capacity(words)
+    branch = "none" if nfail == 0 else "few" if nfail <= cap else "many"
+    fer, lo, hi = wilson_interval(fe, words)
+    return {"bit_per_s": words * code.n / seconds, "seconds": seconds,
+            "ber": errs / (words * code.n), "fer": fer, "fer_lo": lo,
+            "fer_hi": hi, "words": words,
+            "avg_iterations": float(it.mean()), "branch": branch,
+            "stage1_failures": nfail}
+
+
+def _log_point(tag: str, snr: float, p: dict) -> None:
+    log("evaluate", f"{tag} {snr} dB: {p['bit_per_s']:.6g} bit/s "
+        f"({p['seconds'] * 1e3:.1f} ms), BER {p['ber']:.4e}, FER "
+        f"{p['fer']:.5f} [{p['fer_lo']:.5f}, {p['fer_hi']:.5f}], avg iters "
+        f"{p['avg_iterations']:.3f}, branch {p['branch']} "
+        f"({p['stage1_failures']} stage-1 failures)")
+
+
+def _sweep(dev, code, snrs, **kw):
+    """One evaluate_code call per point (so each point is timed alone);
+    returns the statistics and the per-point reports."""
+    stats = BerStatistics(code.n)
+    reports = {}
+    for snr in snrs:
+        sync(dev)
+        t0 = time.perf_counter()
+        evaluate_code(code, [snr], BATCH, MAX_ITERS, batch_size=BATCH,
+                      staged=True, phase1_iters=PHASE1_ITERS, engine="cuda",
+                      stats=stats, device=dev, **kw)
+        sync(dev)
+        reports[snr] = _point_report(stats, code, snr,
+                                     time.perf_counter() - t0)
+    return stats, reports
+
+
+def phase_evaluate(dev) -> dict:
+    launches = collections.Counter()
+    out = {}
+    # (a) the reference's wifi preset through the CLI's own function
+    cuda_static.launches.clear()
+    bench = run_cli(dev, ["bench", "wifi", "--transmissions", str(BATCH),
+                          "--batch-size", str(BATCH), "--engine", "cuda"])
+    got = dict(cuda_static.launches)
+    launches.update(got)
+    log("evaluate", f"(a) bench wifi: status {bench['status']!r}, "
+        f"{bench['throughput_bit_per_s']:.6g} bit/s over {bench['seconds']:.2f}"
+        f" s, BER {bench['ber']}; launches {got}")
+    if got.get(("min-sum", "bfloat16"), 0) == 0:
+        raise AssertionError("bench wifi ran without the kernel")
+    out["bench_wifi"] = bench
+    # (b) the sum-product waterfall, f32 state, true LLRs
+    cuda_static.launches.clear()
+    by_rate = collections.defaultdict(list)
+    for rate, snr in JAX_SP_FER:
+        by_rate[rate].append(snr)
+    sp_points = {}
+    for rate, snrs in by_rate.items():
+        code = wifi_code(1944, rate)
+        _, reps = _sweep(dev, code, snrs, kind="sum-product", scale_llr=True,
+                         store_dtype="float32", seed=WIFI_SEED)
+        for snr, p in reps.items():
+            _log_point(f"(b) sum-product f32 r{rate:.4f}", snr, p)
+            jfer, jlo, jhi = JAX_SP_FER[(rate, snr)]
+            overlap = p["fer_lo"] <= jhi and jlo <= p["fer_hi"]
+            log("evaluate", f"(b) r{rate:.4f} {snr} dB: port FER "
+                f"[{p['fer_lo']:.5f}, {p['fer_hi']:.5f}] vs JAX {jfer:.5f} "
+                f"[{jlo:.5f}, {jhi:.5f}]: "
+                f"{'overlap' if overlap else 'NO OVERLAP'}")
+            if not overlap:
+                raise AssertionError(f"sum-product FER at rate {rate:.4f}, "
+                                     f"{snr} dB outside the JAX band")
+            sp_points[f"{rate:.4f}@{snr}"] = p
+    got = dict(cuda_static.launches)
+    launches.update(got)
+    log("evaluate", f"(b) launches {got}")
+    if got.get(("sum-product", "float32"), 0) == 0:
+        raise AssertionError("the sum-product sweep ran without the kernel")
+    out["sum_product"] = sp_points
+    # (c) normalized and offset min-sum, bf16 state, rate 5/6 at 3.0 dB
+    code = wifi_code(1944, 5 / 6)
+    for kind in ("normalized-min-sum", "offset-min-sum"):
+        cuda_static.launches.clear()
+        _, reps = _sweep(dev, code, [3.0], kind=kind,
+                         store_dtype="bfloat16", seed=WIFI_SEED)
+        got = dict(cuda_static.launches)
+        launches.update(got)
+        _log_point(f"(c) {kind} bf16 r5/6", 3.0, reps[3.0])
+        log("evaluate", f"(c) {kind}: launches {got}")
+        if got.get((kind, "bfloat16"), 0) == 0:
+            raise AssertionError(f"{kind} sweep ran without the kernel")
+        out[kind] = reps[3.0]
+    # (d) the other (kind, store) pairs once each through the same path
+    for kind, store, snr in (("min-sum", "float32", 3.0),
+                             ("normalized-min-sum", "float32", 3.0),
+                             ("offset-min-sum", "float32", 3.0),
+                             ("sum-product", "bfloat16", 2.5)):
+        sp = kind == "sum-product"
+        cuda_static.launches.clear()
+        _, reps = _sweep(dev, code, [snr], kind=kind, scale_llr=sp,
+                         store_dtype=store, seed=WIFI_SEED)
+        got = dict(cuda_static.launches)
+        launches.update(got)
+        _log_point(f"(d) {kind} {store} r5/6", snr, reps[snr])
+        if got.get((kind, store), 0) == 0:
+            raise AssertionError(f"{kind}/{store} sweep ran without the "
+                                 "kernel")
+        out[f"{kind}/{store}"] = reps[snr]
+    log("evaluate", f"launches on the evaluate path: {dict(launches)}")
+    out["launches"] = launches
+    return out
+
+
+def run_cli(dev, argv):
+    """One command of ``python -m ldpc_tpu_torch.cli``, in this process.
+    The CLI runs on the card; a rehearsal on the CPU sets
+    LDPC_TPU_PLATFORM=cpu for the call, as a user would."""
+    import os
+    args = cli.build_parser().parse_args(argv)
+    if dev.type == "cuda":
+        return args.fn(args)
+    os.environ["LDPC_TPU_PLATFORM"] = dev.type
+    try:
+        return args.fn(args)
+    finally:
+        del os.environ["LDPC_TPU_PLATFORM"]
+
+
+def phase_torch(dev, gen) -> dict:
+    """The torch engine against the kernel, kind min-sum, f32 state."""
+    probe = run_cli(dev, ["probe"])
+    code = near_earth_code()
+    vec = epsilon_probe(code.n, flips=(0,), epsilon=1e-2, device=dev)
+    e, it, ok = make_static_sweep_decoder(code, MAX_ITERS, store_dtype="float32",
+                                          device=dev)(vec)
+    kern = {"errors_decoded": int(e[0]), "iterations": int(it[0]),
+            "success": bool(ok[0])}
+    log("torch", f"probe (near-earth, eps 1e-2, flip 0): torch engine "
+        f"{probe}, kernel f32 {kern}")
+    if any(probe[k] != kern[k] for k in kern):
+        raise AssertionError("probe: torch engine and kernel differ")
+    # 1,024 words in the rate-1/2 waterfall: the torch engine on the card
+    # must equal itself on the CPU word for word (and, by the CPU tests, the
+    # JAX XLA engine).  Against the kernel it differs as the JAX package's
+    # XLA engine differs from its Pallas kernel: the variable sums round in
+    # another order (XLA: chan + (0 + sum); Pallas: -chan + each message),
+    # so a word on the edge of convergence may go either way.  Reported.
+    code = wifi_code(1944, 1 / 2)
+    llr = llr_batch(code, TORCH_WORDS, VARIANT_SNR[("r1/2", False)], gen,
+                    dev)
+    torch_dec = make_staged_decoder_device(code, MAX_ITERS, phase1_iters=[],
+                                           engine="torch", device=dev)
+    kern_dec = make_static_sweep_decoder(code, MAX_ITERS,
+                                         store_dtype="float32", device=dev)
+    got, torch_ms = timed_once(lambda: torch_dec(llr), dev)
+    want = kern_dec(llr)
+    kern_ms = time_ms(lambda: kern_dec(llr), dev, reps=3)
+    on_cpu = make_staged_decoder_device(code, MAX_ITERS, phase1_iters=[],
+                                        engine="torch", device="cpu")(
+                                            llr.cpu())
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, on_cpu))
+    c = compare(got, want)
+    both = int(((got[0] != want[0]) | (got[1] != want[1]))[
+        got[2] & want[2]].sum())
+    log("torch", f"802.11n r1/2, {TORCH_WORDS} words, min-sum: torch engine "
+        f"{torch_ms:.1f} ms on the card, kernel f32 {kern_ms:.3f} ms; torch "
+        f"engine card == CPU on every word: {same}; against the kernel "
+        f"{c['mismatched_converged']} mismatched words converged on either "
+        f"side ({both} on both, {c['mismatched']} in all), converged "
+        f"{int(got[2].sum())} (torch) and {int(want[2].sum())} (kernel) of "
+        f"{TORCH_WORDS}")
+    if not same:
+        raise AssertionError("the torch engine differs on the card and on "
+                             "the CPU")
+    return {"probe": probe, "torch_ms": torch_ms, "kernel_ms": kern_ms,
+            "both_converged_mismatch": both, **c}
+
+
 def run(dev: torch.device) -> dict:
     code = near_earth_code()
     smi = phase_card(dev) if dev.type == "cuda" else "cpu"
@@ -343,20 +703,39 @@ def run(dev: torch.device) -> dict:
     main = phase_main(dev, code, gen)
     phase_band(main["points"])
     phase_profile(dev, main["step"])
+    variants = phase_variants(dev, gen)
+    ev = phase_evaluate(dev)
+    phase_torch(dev, gen)
+    launches = collections.Counter(main["launches"])
+    launches.update(ev["launches"])
     st = kern["stage1"]
-    kernels = {"kernels": [{
-        "name": "minsum_flooding", "route": "cuda",
-        "source": "ldpc_tpu_torch/csrc/minsum_flooding.cu",
-        "replaces": TPU_CALL, "tpu_kernel": TPU_KERNEL,
-        "launches": main["launches"],
-        "max_abs_err": kern["worst"]["max_abs_err"],
-        "mismatched_words": kern["worst"]["mismatched_converged"],
-        "ms": st["ms"], "plain_ms": st["plain_ms"],
-        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-        "library_ms": None,
-        "shape": f"{BATCH} words x {code.n}, {PHASE1_ITERS} iterations, "
-                 "3.4 dB",
-    }]}
+    rows = []
+    for (kind, store), v in variants.items():
+        main_shape = (kind, store) == ("min-sum", "bfloat16")
+        t = st if main_shape else v
+        rows.append({
+            "name": f"flooding[{kind},{store}]", "route": "cuda",
+            "source": SOURCE, "replaces": TPU_CALL,
+            "tpu_kernel": TPU_KERNEL[kind] + f", {store} store",
+            "launches": launches[(kind, store)],
+            "max_abs_err": max(v["max_abs_err"],
+                               kern["worst"]["max_abs_err"] if main_shape
+                               else 0),
+            "mismatched_words": v["mismatched"],
+            "words_checked": v["checked"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "smem_bytes": kern["smem"] if main_shape else v["smem"],
+            "near_earth_ms": v["near_earth_ms"],
+            "shape": (f"{BATCH} words x {code.n} (near-earth), "
+                      f"{PHASE1_ITERS} iterations, 3.4 dB") if main_shape
+            else v["shape"],
+        })
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    if missing:
+        raise AssertionError(f"no launch on a path: {missing}")
+    kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main}
 

@@ -4,13 +4,17 @@ It imports ``torch`` and numpy, never ``jax`` and nothing of ``ldpc_tpu``;
 sub-packages mirror ``ldpc_tpu`` so each module's counterpart is easy to
 find:
 
-  codes/   QC shift tables, the JSON code format, CCSDS near-earth
-  ops/     decode plans; the flooding min-sum CUDA kernel
-           (``csrc/minsum_flooding.cu``), its plain PyTorch version and
-           wrapper (``ops/cuda_static.py``)
-  sim/     BPSK/AWGN channel, staged Monte-Carlo sweep, BER/FER statistics
+  codes/   QC shift tables, the JSON code format, CCSDS near-earth, the
+           IEEE 802.11n n = 1944 family
+  ops/     decode plans; the flooding CUDA kernel (``csrc/flooding.cu``,
+           4 kinds x bf16/f32 state), its plain PyTorch versions and wrapper
+           (``ops/cuda_static.py``); the plain-torch decoder of the
+           ``"torch"`` engine (``ops/decoder.py``); the f64 oracle
+  sim/     BPSK/AWGN channel, Monte-Carlo sweeps (``evaluate_code``, the
+           staged cascade), BER/FER statistics
   utils/   device selection
   csrc/    CUDA sources and their nvcc + ctypes build
+  cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe``
 
 Entry points run on the card unless called with ``device="cpu"``.
 
@@ -20,10 +24,11 @@ Quick start (on the card)::
     from ldpc_tpu_torch.codes import near_earth_code
     from ldpc_tpu_torch.sim import make_staged_sweep_device
     step = make_staged_sweep_device(
-        near_earth_code(), 50, generator=torch.Generator("cuda").manual_seed(0))
+        near_earth_code(), 50, engine="cuda",
+        generator=torch.Generator("cuda").manual_seed(0))
     out = step(torch.full((32768,), 3.4))
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = ["codes", "ops", "sim", "utils", "csrc"]

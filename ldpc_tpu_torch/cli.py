@@ -1,0 +1,200 @@
+"""Command-line entry points of the port: ``python -m ldpc_tpu_torch.cli``.
+
+The counterpart of ``python -m ldpc_tpu.cli`` for three of its commands,
+with the same arguments and defaults:
+
+  evaluate   BER/FER sweep of a code on the card
+  bench      the reference's benchmark presets (near-earth, wifi)
+  probe      deterministic epsilon/bit-flip probe (ldpcCUDA.py:677)
+
+Engines: ``--engine torch`` is the counterpart of ``xla`` (plain torch
+ops), ``--engine cuda`` of ``pallas`` (the CUDA flooding kernel).
+Everything runs on the card; ``LDPC_TPU_PLATFORM=cpu`` runs it on the CPU
+instead (the kernel's plain PyTorch version stands in for it there), as it
+forces the CPU in the JAX CLI.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def _device():
+    """``"cpu"`` when ``LDPC_TPU_PLATFORM=cpu``, else None: the card."""
+    name = os.environ.get("LDPC_TPU_PLATFORM")
+    if name and name != "cpu":
+        raise SystemExit(f"LDPC_TPU_PLATFORM={name!r}: the port takes "
+                         "'cpu' or nothing (the card)")
+    return name or None
+
+
+def _get_code(name: str):
+    from .codes import load_code_json, near_earth_code, wifi_code
+    if name in ("near-earth", "nearearth", "ccsds"):
+        return near_earth_code()
+    if name in ("wifi", "802.11n"):
+        return wifi_code()
+    return load_code_json(name)
+
+
+def cmd_evaluate(args):
+    """The sweep; prints the summary line and returns the statistics."""
+    from .sim import evaluate_code
+    if args.sharded:
+        raise NotImplementedError(
+            "--sharded waits for parallel/, ROADMAP.md Queue A item 9")
+    if args.plot:
+        raise NotImplementedError(
+            "--plot waits for analysis/, ROADMAP.md Queue A item 10")
+    if args.tile_b is not None and args.engine != "cuda":
+        raise SystemExit("--tile-b is a kernel scheduling lever; combine it "
+                         "with --engine cuda")
+    code = _get_code(args.code)
+    # a phase budget must sit below the full iteration budget; drop the
+    # ones that don't (the default "12" with e.g. --iterations 8 simply
+    # means an unstaged decode)
+    phases = [int(p) for p in str(args.phase_iters).split(",")
+              if int(p) < args.iterations]
+    stats = evaluate_code(
+        code, args.snr, args.transmissions, args.iterations,
+        seed=args.seed, batch_size=args.batch_size, kind=args.kind,
+        scale_llr=(args.kind == "sum-product"), engine=args.engine,
+        staged=not args.no_staged and bool(phases), phase1_iters=phases,
+        store_dtype=args.store_dtype, schedule=args.schedule,
+        tile_b=args.tile_b, sort_words=args.sort_words,
+        codewords=args.codewords, checkpoint_path=args.checkpoint,
+        early_abort_ber=args.early_abort_ber, verbose=True,
+        device=_device())
+    print(json.dumps(stats.summary()))
+    return stats
+
+
+def cmd_bench(args):
+    """Benchmark presets mirroring the reference's in-module self-tests.
+
+    ``near-earth`` reproduces ``ldpc.testNearEarth`` (ldpc.py:480-498): roi
+    [3.0, 3.2, 3.4, 3.6] dB, min-sum, 50 iterations, decoded bit/s and
+    per-point BER.  ``wifi`` reproduces ``wifiCUDA.testWifi`` (seed 460101,
+    same roi, 50 iterations, status 'OK' iff the BER at the two highest SNR
+    points is zero — wifiCUDA.py:660-682).  Prints one JSON line and
+    returns it as a dict.
+    """
+    from .sim import evaluate_code
+    preset = args.preset
+    code = _get_code(preset)
+    seed = 460101 if preset == "wifi" else args.seed
+    t0 = time.time()
+    stats = evaluate_code(
+        code, args.snr, args.transmissions, args.iterations, seed=seed,
+        batch_size=args.batch_size, staged=True, engine=args.engine,
+        verbose=True, device=_device())
+    dt = time.time() - t0
+    (_, _, _, axis, _, ber, _) = stats.get_stats_v2()
+    status = "OK" if len(ber) >= 2 and ber[-1] == 0 and ber[-2] == 0 \
+        else f"{preset} problem"
+    out = {
+        "preset": preset,
+        "throughput_bit_per_s": code.n * len(args.snr)
+        * args.transmissions / dt,
+        "seconds": dt,
+        "ber": {float(s): float(b) for s, b in zip(axis, ber)},
+        "status": status,
+    }
+    print(json.dumps(out))
+    return out
+
+
+def cmd_probe(args):
+    """The probe on the torch engine; prints and returns its dict."""
+    from .sim import evaluate_epsilon_probe
+    code = _get_code(args.code)
+    unc, dec, iters, ok = evaluate_epsilon_probe(
+        code, epsilon=args.epsilon, flips=tuple(args.flips),
+        max_iters=args.iterations, device=_device())
+    out = {"errors_uncoded": unc, "errors_decoded": dec,
+           "iterations": iters, "success": ok}
+    print(json.dumps(out))
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="ldpc_tpu_torch", description=__doc__,
+                                formatter_class=argparse.
+                                RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="command", required=True)
+
+    e = sub.add_parser("evaluate", help="BER/FER sweep")
+    e.add_argument("--code", default="near-earth")
+    e.add_argument("--snr", type=float, nargs="+",
+                   default=[3.0, 3.2, 3.4, 3.6])
+    e.add_argument("--transmissions", type=int, default=50)
+    e.add_argument("--iterations", type=int, default=50)
+    e.add_argument("--seed", type=int, default=7134066)
+    e.add_argument("--batch-size", type=int, default=1024)
+    e.add_argument("--kind", default="min-sum")
+    e.add_argument("--no-staged", action="store_true")
+    e.add_argument("--engine", default="torch", choices=["torch", "cuda"])
+    e.add_argument("--schedule", default="flooding",
+                   choices=["flooding", "layered"],
+                   help="kernel message schedule: flooding (reference "
+                        "semantics); layered is not ported yet")
+    e.add_argument("--tile-b", type=int, default=None,
+                   help="the JAX kernel's codeword tile; refused (the CUDA "
+                        "kernel runs one word per block)")
+    e.add_argument("--store-dtype", default=None,
+                   choices=["bfloat16", "float32", "int8"],
+                   help="cuda engine state dtype (int8 is not ported yet)")
+    e.add_argument("--sharded", action="store_true",
+                   help="evaluate over every visible device (not ported "
+                        "yet)")
+    e.add_argument("--phase-iters", default="12",
+                   help="staged-decode cascade budgets, e.g. '6,16' for "
+                        "6 -> 16 -> full-iteration stages (exactly "
+                        "equivalent results, less straggler waste)")
+    e.add_argument("--checkpoint", default=None,
+                   help="save statistics after every SNR point and resume "
+                        "past completed points on restart")
+    e.add_argument("--sort-words", action="store_true",
+                   help="difficulty-sort the batch before decoding (not "
+                        "ported yet)")
+    e.add_argument("--codewords", default="zero",
+                   choices=["zero", "random"],
+                   help="'random' transmits encoded random messages (not "
+                        "ported yet)")
+    e.add_argument("--early-abort-ber", type=float, default=None,
+                   help="stop the sweep once a point's BER exceeds this "
+                        "reference value (ldpc.py:473-475)")
+    e.add_argument("--plot", default=None)
+    e.set_defaults(fn=cmd_evaluate)
+
+    be = sub.add_parser("bench", help="reference benchmark presets")
+    be.add_argument("preset", choices=["near-earth", "wifi"])
+    be.add_argument("--snr", type=float, nargs="+",
+                    default=[3.0, 3.2, 3.4, 3.6])
+    be.add_argument("--transmissions", type=int, default=50)
+    be.add_argument("--iterations", type=int, default=50)
+    be.add_argument("--seed", type=int, default=7134066)
+    be.add_argument("--batch-size", type=int, default=1024)
+    be.add_argument("--engine", default="cuda", choices=["torch", "cuda"])
+    be.set_defaults(fn=cmd_bench)
+
+    pr = sub.add_parser("probe", help="deterministic epsilon probe")
+    pr.add_argument("--code", default="near-earth")
+    pr.add_argument("--epsilon", type=float, default=1e-2)
+    pr.add_argument("--flips", type=int, nargs="*", default=[0])
+    pr.add_argument("--iterations", type=int, default=50)
+    pr.set_defaults(fn=cmd_probe)
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,28 +1,34 @@
-"""Flooding min-sum decode with two-min check state: the CUDA kernel, its
-plain PyTorch version, and the wrapper that chooses between them.
+"""Flooding decode with compressed check state: the CUDA kernel, its plain
+PyTorch version, and the wrapper that chooses between them.
 
-Port of ``ldpc_tpu.ops.pallas_static`` for its main-path configuration
-(flooding schedule, ``kind="min-sum"``, bfloat16 state storage, f32
-arithmetic).  ``make_static_sweep_decoder(code, max_iters)`` returns
-``decode_counts(llr[B, n]) -> (errors[B], iterations[B], success[B])``, the
-contract of the Pallas decoder: bit errors against the all-zero codeword,
-the first iteration whose syndrome is zero (``max_iters`` if none), and
-whether there was one.  The check runs BEFORE each update, so a word that
-does not converge reports the state after exactly ``max_iters`` updates.
+Port of ``ldpc_tpu.ops.pallas_static`` for the flooding schedule, every
+``kind`` ("min-sum", "normalized-min-sum", "offset-min-sum",
+"sum-product") and the float ``store_dtype``s (bfloat16, float32), with
+f32 arithmetic.  ``make_static_sweep_decoder(code, max_iters, ...)``
+returns ``decode_counts(llr[B, n]) -> (errors[B], iterations[B],
+success[B])``, the contract of the Pallas decoder: bit errors against the
+all-zero codeword, the first iteration whose syndrome is zero
+(``max_iters`` if none), and whether there was one.  The check runs BEFORE
+each update, so a word that does not converge reports the state after
+exactly ``max_iters`` updates.
 
-On a CUDA tensor the wrapper launches ``csrc/minsum_flooding.cu`` (one
-thread block per word; see the note at the head of that file) or raises.
-On a CPU tensor it runs ``minsum_flooding_reference``, the same arithmetic
-written as batched tensor operations, with the same bf16 rounding points and
-the same f32 summation order.  The two agree word for word; both agree with
-the Pallas kernel word for word on converged words.
+On a CUDA tensor the wrapper launches ``csrc/flooding.cu`` (one thread
+block per word; see the note at the head of that file) or raises.  On a CPU
+tensor it runs ``flooding_reference``, the same arithmetic written as
+batched tensor operations, with the same rounding points and the same f32
+summation orders.  The two agree word for word.  Against the Pallas kernel
+the min-sum family agrees word for word too; sum-product agrees in
+statistics, since XLA's and torch's CPU ``tanh``/``log`` differ in the last
+bits.
 
-``launches`` counts kernel launches made through a wrapper; a run sets it to
-0 and reads it to show which work went through the kernel.
+``launches`` counts kernel launches made through a wrapper, per
+``(kind, store)``; a run clears it and reads it to show which work went
+through the kernel.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -30,17 +36,43 @@ import torch
 
 from ..codes.qc import QCCode
 from ..utils.device import resolve_device
-from .plan import DecodePlan
+from .plan import DecodePlan, frame_indices
 
-__all__ = ["make_static_sweep_decoder", "static_decode_counts",
-           "minsum_flooding_reference", "kernel_tables"]
+__all__ = ["KINDS", "STORES", "make_static_sweep_decoder",
+           "static_decode_counts", "flooding_reference", "kernel_tables",
+           "smem_bytes"]
 
-launches = 0
+KINDS = ("min-sum", "normalized-min-sum", "offset-min-sum", "sum-product")
+STORES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+launches: collections.Counter = collections.Counter()
 
 _BIG = 3.0e38          # two-min fold start, as ops/pallas_static.py _BIG
 _LLR_CLIP = 1.0e30     # non-finite LLRs: NaN -> 0, +-inf -> +-1e30
+_PHI_MIN = 1e-9        # sum-product phi argument clip (pallas _PHI_MIN)
+_PHI_MAX = 38.0        # (pallas _PHI_MAX); phi(38) == 0 in f32
 _MAX_SMEM = 232_448 - 1024   # per-block shared memory, less static + margin
-_SOURCE = "minsum_flooding"
+# The argmin plane stores a slot index as a number in the store type.
+_ARGMIN_LIMIT = {"bfloat16": 256, "float32": 1 << 24}
+_SOURCE = "flooding"
+
+
+def _store_name(store_dtype) -> str:
+    """``"bfloat16"`` or ``"float32"`` for a torch dtype or its name; the
+    int8 message memory is a later slice's kernel variant."""
+    name = str(store_dtype).removeprefix("torch.")
+    if name == "int8":
+        raise NotImplementedError(
+            "store_dtype int8 (Q4.3 message memory) is kernel B5 of "
+            "ROADMAP.md Queue B, not ported yet")
+    if name not in STORES:
+        raise ValueError(f"unsupported store_dtype: {store_dtype}")
+    return name
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"unsupported kernel kind: {kind}")
 
 
 def _sanitize(llr: torch.Tensor) -> torch.Tensor:
@@ -48,20 +80,56 @@ def _sanitize(llr: torch.Tensor) -> torch.Tensor:
                             neginf=-_LLR_CLIP).clamp(-_LLR_CLIP, _LLR_CLIP)
 
 
-def kernel_tables(plan: DecodePlan) -> np.ndarray:
-    """The kernel's int32 edge tables, concatenated:
-    row_deg | row_nb | row_shift | col_deg | col_mb | col_d | col_shift.
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    """phi(x) = -log(tanh(x/2)) on a clipped argument (pallas ``_phi``)."""
+    return -torch.log(torch.tanh(x * 0.5))
 
-    Row slots are the plan's CN slots; column slots follow the plan's VN
+
+def _row_base(plan: DecodePlan) -> np.ndarray:
+    """Index of each block row's first block edge (the phi stash's rows)."""
+    deg = plan.cn_valid.sum(axis=1)
+    return np.concatenate([[0], np.cumsum(deg)[:-1]]).astype(np.int32)
+
+
+def _n_edges(plan: DecodePlan) -> int:
+    return int(plan.cn_valid.sum())
+
+
+def _sign_words(plan: DecodePlan) -> int:
+    return -(-plan.dmax_cn // 32)
+
+
+def kernel_tables(plan: DecodePlan) -> np.ndarray:
+    """The kernel's int32 edge tables, concatenated: row_deg | row_base |
+    row_nb | row_shift | col_deg | col_mb | col_d | col_shift.
+
+    Row slots are the plan's CN slots; ``row_base`` is each block row's
+    first block edge in the phi stash; column slots follow the plan's VN
     order (ascending block row, then slot), which is the accumulation order
     of the Pallas kernel's phase B."""
     dc = plan.dmax_cn
     col_mb = plan.vn_slot // dc
     col_d = plan.vn_slot % dc
-    parts = [plan.cn_valid.sum(axis=1), plan.cn_nb, plan.cn_shift % plan.z,
-             plan.vn_valid.sum(axis=1), col_mb, col_d,
-             plan.vn_shift % plan.z]
+    parts = [plan.cn_valid.sum(axis=1), _row_base(plan), plan.cn_nb,
+             plan.cn_shift % plan.z, plan.vn_valid.sum(axis=1), col_mb,
+             col_d, plan.vn_shift % plan.z]
     return np.concatenate([np.asarray(p, np.int32).ravel() for p in parts])
+
+
+def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
+               store: str = "bfloat16") -> int:
+    """Dynamic shared memory of one block (as ``csrc/flooding.cu`` sizes
+    it): the tables and sign words (4 bytes each), then the state planes in
+    the store type."""
+    _check_kind(kind)
+    n_tab = (plan.block_rows * (2 + 2 * plan.dmax_cn) +
+             plan.block_cols * (1 + 3 * plan.dmax_vn))
+    if kind == "sum-product":
+        planes = 2 * plan.m + _n_edges(plan) * plan.z + 2 * plan.n
+    else:
+        planes = 4 * plan.m + 2 * plan.n
+    width = STORES[_store_name(store)].itemsize
+    return 4 * (n_tab + plan.m * _sign_words(plan)) + width * planes
 
 
 class _RefTables:
@@ -69,70 +137,125 @@ class _RefTables:
 
     def __init__(self, plan: DecodePlan, device):
         z, dc = plan.z, plan.dmax_cn
-        i = np.arange(z)
-        # check c = mb*z + i, slot d -> variable nb*z + (i + s) % z
-        var_idx = (plan.cn_nb[:, None, :] * z +
-                   (i[None, :, None] + plan.cn_shift[:, None, :]) % z)
-        cn_valid = np.broadcast_to(plan.cn_valid[:, None, :], var_idx.shape)
-        # variable v = nb*z + j, column slot k -> check mb*z + (j - s) % z
-        col_mb, col_d = plan.vn_slot // dc, plan.vn_slot % dc
-        chk_idx = (col_mb[:, None, :] * z +
-                   (i[None, :, None] - plan.vn_shift[:, None, :]) % z)
-        vn_valid = np.broadcast_to(plan.vn_valid[:, None, :], chk_idx.shape)
-        as_t = lambda a, dt: torch.as_tensor(    # noqa: E731
-            np.ascontiguousarray(a).reshape(-1, a.shape[-1]), dtype=dt,
-            device=device)
-        self.var_idx = as_t(np.where(cn_valid, var_idx, 0), torch.int64)
-        self.cn_valid = as_t(cn_valid, torch.bool)
-        self.chk_idx = as_t(np.where(vn_valid, chk_idx, 0), torch.int64)
-        self.chk_d = as_t(np.broadcast_to(col_d[:, None, :], chk_idx.shape),
-                          torch.int64)
-        self.vn_valid = as_t(vn_valid, torch.bool)
+        f = frame_indices(plan)
+        as_t = lambda a, dt: torch.as_tensor(a, dtype=dt,  # noqa: E731
+                                             device=device)
+        self.var_idx = as_t(f["var_idx"], torch.int64)
+        self.cn_valid = as_t(f["cn_valid"], torch.bool)
+        self.chk_idx = as_t(f["chk_idx"], torch.int64)
+        self.chk_d = as_t(f["chk_d"], torch.int64)
+        self.chk_word = self.chk_d >> 5
+        self.vn_valid = as_t(f["vn_valid"], torch.bool)
         self.slot = torch.arange(dc, dtype=torch.int64, device=device)
+        self.n_sw = _sign_words(plan)
+        self.bit_of_word = torch.arange(32, dtype=torch.int64, device=device)
+        # sum-product: check c = mb*z + i, slot d -> its phi stash entry
+        # (row_base[mb] + d)*z + i, and stash entry -> flat (check, slot)
+        base = np.repeat(_row_base(plan), z)[:, None]
+        i = np.tile(np.arange(z), plan.block_rows)[:, None]
+        stash_idx = (base + np.arange(dc)[None, :]) * z + i
+        stash_idx = np.where(f["cn_valid"], stash_idx, 0)
+        chk_stash = stash_idx.reshape(-1)[f["chk_idx"] * dc + f["chk_d"]]
+        self.stash_idx = as_t(stash_idx, torch.int64)
+        self.chk_stash = as_t(np.where(f["vn_valid"], chk_stash, 0),
+                              torch.int64)
+        flat = np.flatnonzero(f["cn_valid"].reshape(-1))
+        order = np.argsort(stash_idx.reshape(-1)[flat])
+        self.stash_from_slot = torch.as_tensor(flat[order], device=device)
+        self.n_stash = _n_edges(plan) * z
 
 
-def _recon(m1, m2, am, sp, bits, d):
-    """c2v of slot ``d`` from the two-min state (all gathered to one shape):
-    sign = sp * (1 - 2*bit_d), magnitude m2 at the argmin slot, else m1."""
-    bit = ((bits >> d) & 1).to(torch.float32)
-    sgn = sp.float() * (1.0 - 2.0 * bit)
-    mag = torch.where(am.float() == d.to(torch.float32), m2.float(),
-                      m1.float())
-    return sgn * mag
+def _slot_bits(bits: torch.Tensor, t: _RefTables) -> torch.Tensor:
+    """Sign bit of every (check, slot) from the packed words [b, m, n_sw]."""
+    words = bits[..., t.slot >> 5]                          # [b, m, dc]
+    return ((words >> (t.slot & 31)) & 1).to(torch.float32)
 
 
-def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int):
-    bf16, f32 = torch.bfloat16, torch.float32
+def _pack_bits(neg: torch.Tensor, t: _RefTables) -> torch.Tensor:
+    """Edge signs [b, m, dc] -> ceil(dc/32) words of 32 bits [b, m, n_sw]."""
+    b, m, dc = neg.shape
+    pad = t.n_sw * 32 - dc
+    x = torch.nn.functional.pad(neg.to(torch.int64), (0, pad))
+    return (x.view(b, m, t.n_sw, 32) << t.bit_of_word).sum(-1)
+
+
+def _column_bits(bits: torch.Tensor, t: _RefTables) -> torch.Tensor:
+    """Sign bit of every (variable, column slot) [b, n, dv]."""
+    words = bits[:, t.chk_idx]                              # [b, n, dv, sw]
+    idx = t.chk_word.expand(words.shape[:-1])[..., None]
+    word = torch.gather(words, -1, idx).squeeze(-1)
+    return ((word >> (t.chk_d & 31)) & 1).to(torch.float32)
+
+
+def _adjust(mag, kind, alpha, beta):
+    """The rebuilt magnitude of a min-sum-family message (pallas
+    ``_recon``): scaled by alpha, or lowered by beta with a floor at 0."""
+    if kind == "normalized-min-sum":
+        return mag * alpha
+    if kind == "offset-min-sum":
+        return (mag - beta).clamp_min(0.0)
+    return mag
+
+
+def _sum_in_order(acc, terms, valid):
+    """acc + terms[..., 0] + terms[..., 1] + ... in slot order; invalid
+    slots add -0.0, which leaves every value as it is."""
+    terms = torch.where(valid, terms, -0.0)
+    for k in range(terms.shape[-1]):
+        acc = acc + terms[..., k]
+    return acc
+
+
+def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
+                     kind: str, store: torch.dtype, alpha: float,
+                     beta: float):
+    f32 = torch.float32
+    sum_product = kind == "sum-product"
     b, dev = llr.shape[0], llr.device
     m = t.var_idx.shape[0]
-    chan = _sanitize(llr).to(bf16)
-    tot = (-chan.float()).to(bf16)
-    m1 = torch.zeros(b, m, dtype=bf16, device=dev)
-    m2 = torch.zeros_like(m1)
-    am = torch.zeros_like(m1)
-    sp = torch.ones_like(m1)
-    bits = torch.zeros(b, m, dtype=torch.int64, device=dev)
+    chan = _sanitize(llr).to(store)
+    tot = (-chan.float()).to(store)
+    sp = torch.ones(b, m, dtype=store, device=dev)
+    bits = torch.zeros(b, m, t.n_sw, dtype=torch.int64, device=dev)
+    if sum_product:
+        s_tot = torch.full((b, m), _PHI_MAX, dtype=store, device=dev)
+        stash = torch.zeros(b, t.n_stash, dtype=store, device=dev)
+    else:
+        m1 = torch.zeros(b, m, dtype=store, device=dev)
+        m2 = torch.zeros_like(m1)
+        am = torch.zeros_like(m1)
     errors = torch.zeros(b, dtype=torch.int32, device=dev)
     iters = torch.full((b,), max_iters, dtype=torch.int32, device=dev)
     success = torch.zeros(b, dtype=torch.bool, device=dev)
-    slot = t.slot
+    slot, valid = t.slot, t.cn_valid
     for it in range(max_iters + 1):
-        # ---- phase A: syndrome + new two-min state, all checks at once ----
+        # ---- phase A: syndrome + new check state, all checks at once ----
         tt = tot.float()[:, t.var_idx]                      # [b, m, dc]
-        par = ((tt < 0) & t.cn_valid).sum(-1) % 2
+        par = ((tt < 0) & valid).sum(-1) % 2
         ok = par.sum(-1) == 0
-        c2v = _recon(m1[..., None], m2[..., None], am[..., None],
-                     sp[..., None], bits[..., None], slot)
-        v = tt - c2v
-        a = torch.where(t.cn_valid, v.abs(), _BIG)
-        n1, amn = a.min(-1)
-        # second minimum with multiplicity: mask one argmin slot
-        n2 = a.scatter(-1, amn[..., None], float("inf")).min(-1).values
-        n2 = n2.clamp(max=_BIG)
-        neg = (v < 0) & t.cn_valid
-        bits = (neg.to(torch.int64) << slot).sum(-1)
-        sp = (1 - 2 * (neg.sum(-1) % 2)).to(bf16)
-        m1, m2, am = n1.to(bf16), n2.to(bf16), amn.to(f32).to(bf16)
+        sgn = sp.float()[..., None] * (1.0 - 2.0 * _slot_bits(bits, t))
+        if sum_product:
+            phi_old = stash[:, t.stash_idx].float()
+            rest = (s_tot.float()[..., None] - phi_old).clamp(_PHI_MIN,
+                                                              _PHI_MAX)
+            v = tt - sgn * _phi(rest)
+            ph = _phi(v.abs().clamp(_PHI_MIN, _PHI_MAX))
+            stash = ph.reshape(b, -1)[:, t.stash_from_slot].to(store)
+            s_tot = _sum_in_order(torch.zeros(b, m, dtype=f32, device=dev),
+                                  ph, valid).to(store)
+        else:
+            mag = torch.where(am.float()[..., None] == slot.to(f32),
+                              m2.float()[..., None], m1.float()[..., None])
+            v = tt - sgn * _adjust(mag, kind, alpha, beta)
+            a = torch.where(valid, v.abs(), _BIG)
+            n1, amn = a.min(-1)
+            # second minimum with multiplicity: mask one argmin slot
+            n2 = a.scatter(-1, amn[..., None], float("inf")).min(-1).values
+            n2 = n2.clamp(max=_BIG)
+            m1, m2, am = n1.to(store), n2.to(store), amn.to(f32).to(store)
+        neg = (v < 0) & valid
+        bits = _pack_bits(neg, t)
+        sp = (1 - 2 * (neg.sum(-1) % 2)).to(store)
         # ---- latches (pallas_static.py _latches) ----
         iters = iters.masked_fill(ok & ~success, it)
         errs = (tot.float() < 0).sum(-1, dtype=torch.int32)
@@ -142,25 +265,32 @@ def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int):
             break
         # ---- phase B: totals = -chan + sum over column slots, in order ----
         g = t.chk_idx                                       # [n, dv]
-        msg = _recon(m1[:, g], m2[:, g], am[:, g], sp[:, g], bits[:, g],
-                     t.chk_d)
-        msg = torch.where(t.vn_valid, msg, -0.0)            # x + -0.0 == x
-        acc = -chan.float()
-        for k in range(msg.shape[-1]):
-            acc = acc + msg[..., k]
-        tot = acc.to(bf16)
+        sgn = sp[:, g].float() * (1.0 - 2.0 * _column_bits(bits, t))
+        if sum_product:
+            rest = (s_tot[:, g].float() -
+                    stash[:, t.chk_stash].float()).clamp(_PHI_MIN, _PHI_MAX)
+            msg = sgn * _phi(rest)
+        else:
+            mag = torch.where(am[:, g].float() == t.chk_d.to(f32),
+                              m2[:, g].float(), m1[:, g].float())
+            msg = sgn * _adjust(mag, kind, alpha, beta)
+        tot = _sum_in_order(-chan.float(), msg, t.vn_valid).to(store)
     return errors, iters, success
 
 
-def minsum_flooding_reference(llr: torch.Tensor, plan: DecodePlan,
-                              max_iters: int, *, chunk: int = 4096,
-                              tables: _RefTables | None = None):
+def flooding_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
+                       *, kind: str = "min-sum", store_dtype="bfloat16",
+                       alpha: float = 0.75, beta: float = 0.15,
+                       chunk: int = 4096, tables: _RefTables | None = None):
     """Plain PyTorch version of the kernel, on ``llr``'s device.
 
     Decodes ``chunk`` words at a time (the gathered [chunk, m, dmax] state
     is the memory peak) and stops a chunk once all its words converged."""
+    _check_kind(kind)
+    store = STORES[_store_name(store_dtype)]
     t = tables or _RefTables(plan, llr.device)
-    outs = [_reference_chunk(llr[lo:lo + chunk], t, max_iters)
+    outs = [_reference_chunk(llr[lo:lo + chunk], t, max_iters, kind, store,
+                             float(alpha), float(beta))
             for lo in range(0, llr.shape[0], chunk)]
     if not outs:
         e = torch.zeros(0, dtype=torch.int32, device=llr.device)
@@ -177,24 +307,17 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         from ..csrc import load
         lib = load(_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.minsum_flooding_launch.argtypes = [p, i, i, i, i, i, i, i, i, p,
-                                               i, p, p, p, p]
-        lib.minsum_flooding_launch.restype = i
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flooding_launch.argtypes = [i, i, p, i, i, i, i, i, i, i, i, i,
+                                        p, i, f, f, p, p, p, p]
+        lib.flooding_launch.restype = i
         _LIB = lib
     return _LIB
 
 
-def smem_bytes(plan: DecodePlan) -> int:
-    """Dynamic shared memory of one block (as the .cu entry point sizes it)."""
-    n_tab = (plan.block_rows * (1 + 2 * plan.dmax_cn) +
-             plan.block_cols * (1 + 3 * plan.dmax_vn))
-    return 4 * (n_tab + plan.m) + 2 * (4 * plan.m + 2 * plan.n)
-
-
 def _launch(llr: torch.Tensor, plan: DecodePlan, tables: torch.Tensor,
-            max_iters: int):
-    global launches
+            max_iters: int, kind: str, store: str, alpha: float,
+            beta: float):
     lib = _lib()
     b = llr.shape[0]
     out = [torch.empty(b, dtype=torch.int32, device=llr.device)
@@ -202,25 +325,48 @@ def _launch(llr: torch.Tensor, plan: DecodePlan, tables: torch.Tensor,
     if b:
         with torch.cuda.device(llr.device):
             stream = torch.cuda.current_stream(llr.device).cuda_stream
-            rc = lib.minsum_flooding_launch(
-                llr.data_ptr(), b, plan.n, plan.m, plan.z, plan.block_rows,
-                plan.block_cols, plan.dmax_cn, plan.dmax_vn,
-                tables.data_ptr(), max_iters, out[0].data_ptr(),
-                out[1].data_ptr(), out[2].data_ptr(), stream)
+            rc = lib.flooding_launch(
+                KINDS.index(kind), list(STORES).index(store), llr.data_ptr(),
+                b, plan.n, plan.m, plan.z, plan.block_rows, plan.block_cols,
+                plan.dmax_cn, plan.dmax_vn, _n_edges(plan),
+                tables.data_ptr(), max_iters, alpha, beta,
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                stream)
         if rc != 0:
-            raise RuntimeError(f"{_SOURCE} launch failed: CUDA error {rc}")
-        launches += 1
+            raise RuntimeError(f"{_SOURCE} launch ({kind}, {store}) failed: "
+                               f"CUDA error {rc}")
+        launches[(kind, store)] += 1
     return out[0], out[1], out[2].bool()
 
 
 def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
+                              kind: str = "min-sum",
+                              store_dtype="bfloat16", alpha: float = 0.75,
+                              beta: float = 0.15,
+                              schedule: str = "flooding",
+                              popcount_sign: bool | None = None,
                               device=None):
     """Build ``decode_counts(llr[B, n] float32) -> (errors, iterations,
     success)`` for ``code`` on ``device`` (default: the card).
 
     The decoder takes contiguous float32 LLRs on its own device (positive
-    means bit 1; raw BPSK samples will do, min-sum is scale-invariant).  On
-    CUDA it launches the kernel; on the CPU it runs the plain version."""
+    means bit 1).  The min-sum family is scale-invariant, so raw BPSK
+    samples will do; sum-product needs true LLRs (2y/sigma^2).  ``alpha``
+    scales normalized min-sum and ``beta`` offsets offset min-sum, as in
+    the JAX package.  On CUDA it launches the kernel; on the CPU it runs
+    the plain version."""
+    _check_kind(kind)
+    store = _store_name(store_dtype)
+    if schedule == "layered":
+        raise NotImplementedError(
+            "schedule='layered' is kernel B3 of ROADMAP.md Queue B, not "
+            "ported yet")
+    if schedule != "flooding":
+        raise ValueError(f"unknown schedule: {schedule}")
+    if popcount_sign:
+        raise NotImplementedError(
+            "popcount_sign is kernel B6 of ROADMAP.md Queue B, not ported "
+            "yet")
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -229,15 +375,18 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
     plan = DecodePlan.from_code(code)
     if max_iters < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    if plan.dmax_cn > _ARGMIN_LIMIT[store]:
+        raise NotImplementedError(
+            f"check degree {plan.dmax_cn} exceeds the exact integer range "
+            f"of the {store} argmin plane ({_ARGMIN_LIMIT[store]})")
+    alpha = float(alpha) if kind == "normalized-min-sum" else 0.0
+    beta = float(beta) if kind == "offset-min-sum" else 0.0
     if dev.type == "cuda":
-        if plan.dmax_cn > 32:
+        if smem_bytes(plan, kind, store) > _MAX_SMEM:
             raise NotImplementedError(
-                f"check degree {plan.dmax_cn} > 32: the kernel packs one "
-                "32-bit sign word per check")
-        if smem_bytes(plan) > _MAX_SMEM:
-            raise NotImplementedError(
-                f"one word's state ({smem_bytes(plan)} bytes) exceeds a "
-                "block's shared memory")
+                f"one word's {kind} state in {store} "
+                f"({smem_bytes(plan, kind, store)} bytes) exceeds a block's "
+                "shared memory")
         tables = torch.as_tensor(kernel_tables(plan), device=dev)
     else:
         ref_tables = _RefTables(plan, dev)
@@ -253,16 +402,18 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
         if dev.type == "cpu":
-            return minsum_flooding_reference(llr, plan, max_iters,
-                                             tables=ref_tables)
-        return _launch(llr, plan, tables, max_iters)
+            return flooding_reference(llr, plan, max_iters, kind=kind,
+                                      store_dtype=store, alpha=alpha,
+                                      beta=beta, tables=ref_tables)
+        return _launch(llr, plan, tables, max_iters, kind, store, alpha,
+                       beta)
 
     decode_counts.plan = plan
     return decode_counts
 
 
 def static_decode_counts(code: QCCode, llr: torch.Tensor,
-                         max_iters: int = 50):
+                         max_iters: int = 50, **kw):
     """One-shot convenience wrapper, on ``llr``'s device."""
-    return make_static_sweep_decoder(code, max_iters,
-                                     device=llr.device)(llr)
+    return make_static_sweep_decoder(code, max_iters, device=llr.device,
+                                     **kw)(llr)

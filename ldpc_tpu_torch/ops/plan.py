@@ -21,7 +21,7 @@ import numpy as np
 
 from ..codes.qc import QCCode
 
-__all__ = ["DecodePlan"]
+__all__ = ["DecodePlan", "frame_indices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,3 +103,31 @@ class DecodePlan:
             cn_nb=cn_nb, cn_shift=cn_shift, cn_valid=cn_valid,
             vn_slot=vn_slot, vn_shift=vn_shift, vn_valid=vn_valid,
         )
+
+
+def frame_indices(plan: DecodePlan) -> dict:
+    """Flat gather indices of the two frames (numpy), shared by the port's
+    batched decoders:
+
+    * ``var_idx[c, d]``: the variable of check ``c = mb*z + i``, slot ``d``,
+      ``cn_nb*z + (i + cn_shift) % z`` (0 where ``cn_valid`` is False);
+    * ``chk_idx[v, k]`` and ``chk_d[v, k]``: the check and row slot of
+      variable ``v = nb*z + j``, column slot ``k``,
+      ``mb*z + (j - vn_shift) % z`` (0 where ``vn_valid`` is False).
+    """
+    z, dc = plan.z, plan.dmax_cn
+    i = np.arange(z)
+    var_idx = (plan.cn_nb[:, None, :] * z +
+               (i[None, :, None] + plan.cn_shift[:, None, :]) % z)
+    cn_valid = np.broadcast_to(plan.cn_valid[:, None, :], var_idx.shape)
+    col_mb, col_d = plan.vn_slot // dc, plan.vn_slot % dc
+    chk_idx = (col_mb[:, None, :] * z +
+               (i[None, :, None] - plan.vn_shift[:, None, :]) % z)
+    vn_valid = np.broadcast_to(plan.vn_valid[:, None, :], chk_idx.shape)
+    chk_d = np.broadcast_to(col_d[:, None, :], chk_idx.shape)
+    flat = lambda a: np.ascontiguousarray(a).reshape(-1, a.shape[-1])  # noqa: E731
+    return {"var_idx": flat(np.where(cn_valid, var_idx, 0)),
+            "cn_valid": flat(cn_valid),
+            "chk_idx": flat(np.where(vn_valid, chk_idx, 0)),
+            "chk_d": flat(chk_d),
+            "vn_valid": flat(vn_valid)}

@@ -1,13 +1,17 @@
-"""Channel, staged Monte-Carlo sweep and BER/FER statistics."""
+"""Channel, Monte-Carlo sweeps (staged or not, two engines) and BER/FER
+statistics."""
 
-from .channel import (awgn, llr_from_channel, modulate, slicer,
-                      snr_db_to_sigma, transmit_zero_codeword)
-from .evaluate import (make_staged_decoder_device, make_staged_sweep_device,
-                       staged_decode_counts)
+from .channel import (awgn, epsilon_probe, llr_from_channel, modulate,
+                      slicer, snr_db_to_sigma, transmit_codewords,
+                      transmit_zero_codeword)
+from .evaluate import (evaluate_code, evaluate_epsilon_probe,
+                       make_staged_decoder_device, make_staged_sweep_device,
+                       staged_decode_counts, sweep_step)
 from .stats import BerStatistics, frame_ber_ci, snr_db_actual, wilson_interval
 
-__all__ = ["awgn", "llr_from_channel", "modulate", "slicer",
-           "snr_db_to_sigma", "transmit_zero_codeword",
+__all__ = ["awgn", "epsilon_probe", "llr_from_channel", "modulate", "slicer",
+           "snr_db_to_sigma", "transmit_codewords", "transmit_zero_codeword",
+           "evaluate_code", "evaluate_epsilon_probe",
            "make_staged_decoder_device", "make_staged_sweep_device",
-           "staged_decode_counts", "BerStatistics", "frame_ber_ci",
-           "snr_db_actual", "wilson_interval"]
+           "staged_decode_counts", "sweep_step", "BerStatistics",
+           "frame_ber_ci", "snr_db_actual", "wilson_interval"]

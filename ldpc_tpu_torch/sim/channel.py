@@ -19,7 +19,8 @@ import torch
 from ..utils.device import resolve_device
 
 __all__ = ["snr_db_to_sigma", "modulate", "slicer", "awgn",
-           "llr_from_channel", "transmit_zero_codeword"]
+           "llr_from_channel", "transmit_zero_codeword",
+           "transmit_codewords", "epsilon_probe"]
 
 
 def snr_db_to_sigma(snr_db, *, device=None) -> torch.Tensor:
@@ -78,3 +79,23 @@ def transmit_zero_codeword(batch: int, n: int, snr_db, *,
     clean = torch.full((batch, n), -1.0, dtype=torch.float32,
                        device=resolve_device(device))  # modulate(0) == -1
     return awgn(clean, snr_db, generator=generator)
+
+
+def transmit_codewords(codewords: torch.Tensor, snr_db, *,
+                       generator: torch.Generator | None = None):
+    """BPSK + AWGN for explicit codewords [B, n] (the reference's G-based
+    path, ldpc.py:409-416).  Returns (noisy, sigma, sigma_actual)."""
+    return awgn(modulate(codewords), snr_db, generator=generator)
+
+
+def epsilon_probe(n: int, flips=(0,), epsilon: float = 0.0, *,
+                  device=None) -> torch.Tensor:
+    """Deterministic probe [1, n]: the modulated all-zero word plus
+    ``epsilon``, with the bits at ``flips`` sign-flipped (ldpc.py:417-418,
+    ldpcCUDA.py:677-828)."""
+    v = torch.full((n,), -1.0, dtype=torch.float32,
+                   device=resolve_device(device)) + epsilon
+    idx = torch.as_tensor(list(flips), dtype=torch.int64, device=v.device)
+    # a bit listed twice is flipped twice, as by JAX's .at[].multiply
+    odd = torch.bincount(idx, minlength=n) % 2 == 1
+    return torch.where(odd, -v, v)[None, :]

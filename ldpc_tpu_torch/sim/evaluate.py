@@ -1,12 +1,18 @@
-"""Staged Monte-Carlo decode: the port of the main path of
-``ldpc_tpu.sim.evaluate`` (``make_staged_sweep_device``).
+"""Monte-Carlo BER/FER evaluation: the port of ``ldpc_tpu.sim.evaluate``.
 
-A batch is decoded with a small iteration budget first; the words that did
-not converge are decoded again from scratch with the full budget.  Latching
-makes each word's (errors, iterations, success) equal to those of one
-straight ``max_iters`` decode, while most words pay only the first budget.
+Two decode engines, named after what they replace:
 
-Two JAX constructs have no counterpart in PyTorch and are replaced:
+* ``"torch"``, the counterpart of the JAX package's ``"xla"`` engine: the
+  plain-torch flooding decoder of ``ops/decoder.py`` (compute ``dtype``);
+* ``"cuda"``, the counterpart of ``"pallas"``: the CUDA flooding kernel of
+  ``ops/cuda_static.py`` (state in ``store_dtype``, default bfloat16).
+
+A staged decode runs a batch with a small iteration budget first; the words
+that did not converge are decoded again from scratch with the full budget.
+Latching makes each word's (errors, iterations, success) equal to those of
+one straight ``max_iters`` decode, while most words pay only the first
+budget.  Two JAX constructs have no counterpart in PyTorch and are
+replaced:
 
 * ``lax.cond(nfail <= cap, few, many)`` becomes one host-side branch on the
   number of failures (one device-to-host read per stage);
@@ -17,21 +23,37 @@ Two JAX constructs have no counterpart in PyTorch and are replaced:
 
 "few" and "many" decode the same words the same way, so the branch changes
 only the cost, never the result.
+
+``evaluate_code`` keeps the JAX loop over points and batches: batch
+``done_words`` of point ``s_idx`` draws its noise from a Philox generator
+seeded by ``batch_seed(seed, s_idx, done_words)`` (the JAX package folds the
+same two numbers into its key), so a resumed sweep skips exactly the
+batches a checkpoint holds.  Philox never draws JAX's bits: the two packages
+agree in statistics, not sample for sample.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..codes.qc import QCCode
 from ..ops.cuda_static import make_static_sweep_decoder
+from ..ops.decoder import decoder_for_code
 from ..utils.device import resolve_device
-from .channel import awgn
+from .channel import awgn, epsilon_probe, llr_from_channel
+from .stats import BerStatistics
 
-__all__ = ["default_redo_capacity", "make_staged_decoder_device",
-           "make_staged_sweep_device", "staged_decode_counts"]
+__all__ = ["ENGINES", "batch_seed", "default_redo_capacity",
+           "evaluate_code", "evaluate_epsilon_probe", "sweep_step",
+           "make_staged_decoder_device", "make_staged_sweep_device",
+           "staged_decode_counts"]
+
+ENGINES = ("torch", "cuda")
 
 
 def default_redo_capacity(b: int) -> int:
@@ -41,16 +63,71 @@ def default_redo_capacity(b: int) -> int:
     return min(-(-c // 128) * 128, b)
 
 
+def _refuse_later_options(*, engine, store_dtype, tile_b, sort_words,
+                          dep_stride, popcount_sign):
+    """Options of the JAX package that this port does not carry (yet)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown decode engine: {engine}")
+    if tile_b is not None:
+        raise ValueError("tile_b is a pallas-engine scheduling lever; the "
+                         "port's engines run one word per block")
+    if sort_words:
+        raise NotImplementedError(
+            "sort_words waits in ROADMAP.md Queue A item 5 (the rest of "
+            "sim/evaluate.py)")
+    if dep_stride:
+        raise NotImplementedError(
+            "dep_stride is kernel B8 of ROADMAP.md Queue B, not ported yet")
+    if popcount_sign:
+        raise NotImplementedError(
+            "popcount_sign is kernel B6 of ROADMAP.md Queue B, not ported "
+            "yet")
+    if engine == "torch" and store_dtype is not None:
+        raise ValueError("store_dtype is a cuda-engine option (the torch "
+                         "engine's compute dtype is `dtype`)")
+
+
+def _engine_counts_fn(code: QCCode, max_iters: int, *, kind: str, dtype,
+                      engine: str, store_dtype, schedule: str, device):
+    """``fn(llr[B, n]) -> (errors, iterations, success)`` of one engine."""
+    if engine == "torch":
+        if schedule != "flooding":
+            raise NotImplementedError(
+                f"schedule={schedule!r} needs the cuda engine's kernel B3 "
+                "(ROADMAP.md Queue B)")
+        dec = decoder_for_code(code, max_iters, kind=kind, dtype=dtype)
+
+        def fn(llr):
+            res = dec(llr)
+            return (res.hard.sum(-1, dtype=torch.int32), res.iterations,
+                    res.success)
+
+        return fn
+    return make_static_sweep_decoder(
+        code, max_iters, kind=kind,
+        store_dtype="bfloat16" if store_dtype is None else store_dtype,
+        schedule=schedule, device=device)
+
+
 class StagedDecoder:
     """``decoder(llr[B, n]) -> (errors, iterations, success)`` of a cascade
     ``phase1_iters`` -> ``max_iters``.  ``last_branches`` records, for the
     last call, each re-decode stage's branch: "few" (only the failures),
-    "many" (the whole batch) or "none" (nothing failed)."""
+    "many" (the whole batch) or "none" (nothing failed).  An empty
+    ``phase1_iters`` is one straight ``max_iters`` decode."""
 
     def __init__(self, code: QCCode, max_iters: int = 50, *,
                  phase1_iters: int | Sequence[int] = 12,
                  redo_capacity: int | Sequence[int] | None = None,
-                 device=None):
+                 kind: str = "min-sum", dtype=torch.float32,
+                 store_dtype=None, schedule: str = "flooding",
+                 engine: str = "torch", tile_b: int | None = None,
+                 sort_words: bool = False, dep_stride: int | None = None,
+                 popcount_sign: bool | None = None, device=None):
+        _refuse_later_options(engine=engine, store_dtype=store_dtype,
+                              tile_b=tile_b, sort_words=sort_words,
+                              dep_stride=dep_stride,
+                              popcount_sign=popcount_sign)
         phases = ([int(phase1_iters)] if isinstance(phase1_iters, int)
                   else [int(p) for p in phase1_iters])
         if sorted(phases) != phases or (phases and phases[-1] >= max_iters):
@@ -64,9 +141,10 @@ class StagedDecoder:
                              "stage")
         self.caps = caps
         self.device = resolve_device(device)
-        self.decoders = [make_static_sweep_decoder(code, it,
-                                                   device=self.device)
-                         for it in phases + [max_iters]]
+        self.decoders = [_engine_counts_fn(
+            code, it, kind=kind, dtype=dtype, engine=engine,
+            store_dtype=store_dtype, schedule=schedule, device=self.device)
+            for it in phases + [max_iters]]
         self.last_branches: list[str] = []
 
     def capacities(self, b: int) -> list[int]:
@@ -100,55 +178,61 @@ class StagedDecoder:
         return errors, iters, success
 
 
-def make_staged_decoder_device(code: QCCode, max_iters: int = 50, *,
-                               phase1_iters: int | Sequence[int] = 12,
-                               redo_capacity=None, device=None):
+def make_staged_decoder_device(code: QCCode, max_iters: int = 50,
+                               **staged_kw) -> StagedDecoder:
     """The staged decoder on ``device`` (default: the card); see
-    :class:`StagedDecoder`."""
-    return StagedDecoder(code, max_iters, phase1_iters=phase1_iters,
-                         redo_capacity=redo_capacity, device=device)
+    :class:`StagedDecoder` for the keywords (``engine`` defaults to
+    "torch", as the JAX package's to "xla")."""
+    return StagedDecoder(code, max_iters, **staged_kw)
 
 
 def staged_decode_counts(code: QCCode, llr: torch.Tensor,
-                         max_iters: int = 50, *,
-                         phase1_iters: int | Sequence[int] = 12,
-                         redo_capacity=None):
+                         max_iters: int = 50, **staged_kw):
     """One-shot staged decode on ``llr``'s device; numpy outputs."""
-    dec = StagedDecoder(code, max_iters, phase1_iters=phase1_iters,
-                        redo_capacity=redo_capacity, device=llr.device)
+    dec = StagedDecoder(code, max_iters, device=llr.device, **staged_kw)
     return tuple(x.cpu().numpy() for x in dec(llr))
 
 
 def transmit(n: int, snr_db: torch.Tensor, *,
-             generator: torch.Generator | None = None):
+             generator: torch.Generator | None = None,
+             scale_llr: bool = False):
     """All-zero codeword of length ``n`` per entry of ``snr_db[B]``:
     (llr, sigma, sigma_actual, uncoded bit errors).  The LLRs are the raw
-    noisy samples, as min-sum takes them (it is scale-invariant)."""
+    noisy samples, as min-sum takes them (it is scale-invariant), or with
+    ``scale_llr`` the true LLRs 2y/sigma^2 that sum-product needs."""
     clean = torch.full((snr_db.shape[0], n), -1.0, dtype=torch.float32,
                        device=snr_db.device)
     noisy, sigma, sigma_actual = awgn(clean, snr_db, generator=generator)
+    llr = llr_from_channel(noisy, sigma) if scale_llr else noisy
     unc = (noisy > 0).sum(-1, dtype=torch.int32)
-    return noisy, sigma, sigma_actual, unc
+    return llr, sigma, sigma_actual, unc
 
 
 class StagedSweep:
-    """``step(snr_db[B]) -> dict`` of one Monte-Carlo batch: transmit the
-    all-zero codeword through BPSK + AWGN, staged-decode, count.  The keys
-    are those of the JAX step: errors_uncoded, errors_decoded, iterations,
-    success, sigma, sigma_actual (each [B], on the device)."""
+    """``step(snr_db[B], generator=None) -> dict`` of one Monte-Carlo
+    batch: transmit the all-zero codeword through BPSK + AWGN, staged-decode,
+    count.  The keys are those of the JAX step: errors_uncoded,
+    errors_decoded, iterations, success, sigma, sigma_actual (each [B], on
+    the device).  Noise comes from ``generator``, else the one given when
+    the step was built."""
 
-    def __init__(self, code: QCCode, max_iters: int = 50, *, device=None,
+    def __init__(self, code: QCCode, max_iters: int = 50, *,
+                 scale_llr: bool = False, device=None,
                  generator: torch.Generator | None = None, **staged_kw):
         self.decoder = StagedDecoder(code, max_iters, device=device,
                                      **staged_kw)
         self.n = code.n
+        self.scale_llr = scale_llr
         self.generator = generator
 
-    def __call__(self, snr_db) -> dict:
+    def __call__(self, snr_db, generator: torch.Generator | None = None
+                 ) -> dict:
         snr_db = torch.as_tensor(snr_db, dtype=torch.float32,
                                  device=self.decoder.device)
-        llr, sigma, sigma_actual, unc = transmit(self.n, snr_db,
-                                                 generator=self.generator)
+        llr, sigma, sigma_actual, unc = transmit(
+            self.n, snr_db,
+            generator=self.generator if generator is None else generator,
+            scale_llr=self.scale_llr)
         errors, iters, success = self.decoder(llr)
         return {
             "errors_uncoded": unc,
@@ -161,11 +245,156 @@ class StagedSweep:
 
 
 def make_staged_sweep_device(code: QCCode, max_iters: int = 50, *,
-                             device=None,
+                             scale_llr: bool = False, device=None,
                              generator: torch.Generator | None = None,
-                             **staged_kw):
+                             **staged_kw) -> StagedSweep:
     """Transmit + staged decode on ``device`` (default: the card), noise
     from ``generator``; see :class:`StagedSweep`.  Accepts every
-    :func:`make_staged_decoder_device` keyword."""
-    return StagedSweep(code, max_iters, device=device, generator=generator,
-                       **staged_kw)
+    :class:`StagedDecoder` keyword."""
+    return StagedSweep(code, max_iters, scale_llr=scale_llr, device=device,
+                       generator=generator, **staged_kw)
+
+
+def sweep_step(code: QCCode, max_iters: int = 50, *, kind: str = "min-sum",
+               scale_llr: bool = False, dtype=torch.float32, device=None,
+               generator: torch.Generator | None = None) -> StagedSweep:
+    """The unstaged Monte-Carlo step of the torch engine:
+    ``step(snr_db[B], generator=None) -> dict`` with the keys of
+    :class:`StagedSweep`."""
+    return StagedSweep(code, max_iters, scale_llr=scale_llr, device=device,
+                       generator=generator, phase1_iters=[], kind=kind,
+                       dtype=dtype, engine="torch")
+
+
+def batch_seed(seed: int, s_idx: int, done_words: int) -> int:
+    """Philox seed of batch ``done_words`` of point ``s_idx``: the JAX
+    loop's ``fold_in(fold_in(key(seed), s_idx), done_words)``, as a numpy
+    SeedSequence of the same three numbers."""
+    return int(np.random.SeedSequence([seed, s_idx, done_words])
+               .generate_state(1, np.uint64)[0])
+
+
+def evaluate_code(code: QCCode,
+                  snr_points: Sequence[float],
+                  num_transmissions: int,
+                  max_iters: int = 50,
+                  *,
+                  seed: int = 7134066,
+                  batch_size: int = 256,
+                  kind: str = "min-sum",
+                  scale_llr: bool = False,
+                  dtype=torch.float32,
+                  staged: bool = False,
+                  phase1_iters: int | Sequence[int] = 12,
+                  engine: str = "torch",
+                  store_dtype=None,
+                  schedule: str = "flooding",
+                  tile_b: int | None = None,
+                  sort_words: bool = False,
+                  codewords: str = "zero",
+                  early_abort_ber: float | None = None,
+                  stats: BerStatistics | None = None,
+                  checkpoint_path=None,
+                  verbose: bool = False,
+                  device=None) -> BerStatistics:
+    """Run a full SNR sweep; returns mergeable BerStatistics.
+
+    ``early_abort_ber``: stop the sweep if a finished SNR point's BER
+    exceeds this reference value (ldpc.py:473-475).
+
+    ``staged=True`` decodes each batch in phases (``phase1_iters`` ->
+    ``max_iters``), with the same statistics as a straight decode.
+    ``engine`` is "torch" (the XLA engine's counterpart) or "cuda" (the
+    kernel; ``store_dtype`` bfloat16 or float32).
+
+    ``codewords``: "zero" (the reference's all-zero Monte-Carlo path,
+    ldpc.py:409-411); "random" waits for the port of ``codes/encode.py``.
+
+    ``checkpoint_path``: save the accumulated statistics after every SNR
+    point and, on restart, resume by skipping points already completed
+    with at least ``num_transmissions`` words, and the batches already
+    recorded of a point begun.
+    """
+    if codewords == "random":
+        raise NotImplementedError(
+            "codewords='random' needs codes/encode.py, ROADMAP.md Queue A "
+            "item 5")
+    if codewords != "zero":
+        raise ValueError(f"unknown codewords mode: {codewords!r}")
+    dev = resolve_device(device)
+    step = make_staged_sweep_device(
+        code, max_iters, scale_llr=scale_llr, device=dev,
+        phase1_iters=phase1_iters if staged else [], kind=kind,
+        dtype=dtype, engine=engine, store_dtype=store_dtype,
+        schedule=schedule, tile_b=tile_b, sort_words=sort_words)
+    if stats is None:
+        if checkpoint_path is not None and os.path.exists(checkpoint_path):
+            stats = BerStatistics.load(checkpoint_path)
+        else:
+            stats = BerStatistics(code.n)
+    for s_idx, snr in enumerate(snr_points):
+        already = int(stats.column("weight")[
+            stats.column("snr") == snr].sum()) if len(stats) else 0
+        if already >= num_transmissions:
+            continue  # resumed past this point
+        t0 = time.time()
+        # Resume mid-point without double counting: the checkpointed
+        # batches used seeds batch_seed(.., 0..already-1), so starting
+        # done_words there continues with fresh draws; the running error
+        # count starts from the checkpointed entries.
+        done_words = already
+        point_errs = int(stats.column("errors_decoded")[
+            stats.column("snr") == snr].sum()) if already else 0
+        while done_words < num_transmissions:
+            b = min(batch_size, num_transmissions - done_words)
+            gen = torch.Generator(device=dev).manual_seed(
+                batch_seed(seed, s_idx, done_words))
+            out = step(torch.full((b,), snr, dtype=torch.float32,
+                                  device=dev), generator=gen)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            stats.add_batch(
+                snr=np.full(b, snr), sigma=out["sigma"],
+                sigma_actual=out["sigma_actual"],
+                errors_uncoded=out["errors_uncoded"],
+                errors_decoded=out["errors_decoded"],
+                iterations=out["iterations"], max_iterations=max_iters,
+                success=out["success"])
+            point_errs += int(out["errors_decoded"].sum())
+            done_words += b
+        if verbose:
+            dt = time.time() - t0
+            bits = num_transmissions * code.n
+            print(f"[evaluate] snr {snr}: {dt:.3f}s, "
+                  f"{bits / dt:,.0f} bit/s decoded, "
+                  f"BER {point_errs / bits:.3e}")
+        if checkpoint_path is not None:
+            stats.save(checkpoint_path)
+        if early_abort_ber is not None:
+            ber = point_errs / (num_transmissions * code.n)
+            if ber > early_abort_ber:
+                break
+    return stats
+
+
+def evaluate_epsilon_probe(code: QCCode, epsilon: float = 1e-2,
+                           flips: Sequence[int] = (0,),
+                           max_iters: int = 50, return_time: bool = False,
+                           device=None, **decoder_kw):
+    """Deterministic single-vector probe (ldpcCUDA.py:677-828 equivalent)
+    on the torch engine.
+
+    Decodes ``modulate(zeros) + epsilon`` with the given hard sign flips;
+    no PRNG involved.  Returns (errors_uncoded, errors_decoded,
+    iterations, success), plus the decode wall time in seconds when
+    ``return_time=True``.
+    """
+    probe = epsilon_probe(code.n, flips=flips, epsilon=epsilon,
+                          device=device)
+    dec = decoder_for_code(code, max_iters, **decoder_kw)
+    t0 = time.time()
+    res = dec(probe)
+    hard = res.hard.cpu()          # the completion barrier
+    wall = time.time() - t0
+    out = (int((probe > 0).sum()), int(hard.sum()),
+           int(res.iterations[0]), bool(res.success[0]))
+    return out + (wall,) if return_time else out

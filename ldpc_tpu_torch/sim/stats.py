@@ -1,10 +1,27 @@
-"""BER/FER statistics: columnar Monte-Carlo records (numpy).
+"""BER/FER statistics: vectorized, mergeable Monte-Carlo records (numpy).
 
-A trimmed copy of ``ldpc_tpu.sim.stats``: per-word entries recorded one
-device batch at a time, aggregated per SNR point into BER, FER and average
-iterations, with the frame-clustered BER interval and the Wilson interval
-for FER.  The merge, aggregate-entry and save/load parts of the JAX module
-wait for the port's distributed and checkpoint paths.
+The port's own copy of ``ldpc_tpu.sim.stats``, whole: a checkpoint written
+by either package loads in the other.
+
+Reproduces the reference's ``berStatistics`` (``common.py:142-227``) with
+a batched design: entries are stored as columnar numpy arrays (one
+``add_batch`` call per decoded device batch instead of a Python list append
+per transmission), aggregation is vectorized, and two merge operations match
+the reference's distributed merge semantics (``union`` sorts, ``add``
+concatenates — ``common.py:167-180``, used as the "all-reduce" by
+``ldpc.py:458`` and ``ldpcCUDA.py:905``).
+
+Each entry additionally carries a ``weight`` = number of codewords it
+represents.  Per-word recording uses weight 1 (reference-equivalent); a
+distributed counter path records one pre-reduced entry per (SNR point,
+step) whose error/iteration fields are sums over the step's global batch
+(``add_aggregate``), without ever materialising per-word host arrays.
+
+Extra capabilities over the reference: frame-error rate (FER), and correct
+average-iteration aggregation (the reference's ``getStatsV2`` has a no-op
+statement bug at ``common.py:224`` — ``averageNumberOfIterations[index] +
+...`` without assignment — so it always reports 0; we compute the real
+mean).
 """
 
 from __future__ import annotations
@@ -72,7 +89,7 @@ class BerStatistics:
     """Columnar per-transmission Monte-Carlo records + aggregation.
 
     Per-word rows carry the 9-tuple of ``berStatistics.addEntry``
-    (common.py:150-157).
+    (common.py:150-157); weighted rows carry pre-reduced sums.
     """
 
     codeword_size: int = 8176
@@ -80,6 +97,15 @@ class BerStatistics:
         default_factory=lambda: {f: [] for f in _FIELDS})
 
     # --- recording ---------------------------------------------------------
+    def add_entry(self, snr, sigma, sigma_actual, errors_uncoded,
+                  errors_decoded, iterations, max_iterations, success):
+        """Scalar per-word entry, reference-compatible (common.py:150)."""
+        self.add_batch(
+            np.atleast_1d(snr), np.atleast_1d(sigma),
+            np.atleast_1d(sigma_actual), np.atleast_1d(errors_uncoded),
+            np.atleast_1d(errors_decoded), np.atleast_1d(iterations),
+            max_iterations, np.atleast_1d(success))
+
     def add_batch(self, snr, sigma, sigma_actual, errors_uncoded,
                   errors_decoded, iterations, max_iterations, success):
         """Vectorized per-word entries: one call per decoded batch."""
@@ -101,6 +127,26 @@ class BerStatistics:
             frame_errors=frame_errors,
             weight=np.ones(b, np.int64))
 
+    def add_aggregate(self, snr, sigma, sigma_actual_mean, errors_uncoded,
+                      errors_decoded, iterations_sum, max_iterations,
+                      success_count, frame_errors, weight):
+        """One pre-reduced entry for `weight` codewords (distributed path).
+
+        All error/iteration arguments are sums over the represented words;
+        ``sigma_actual_mean`` is their mean realized sigma.
+        """
+        self._append(
+            snr=np.atleast_1d(np.float64(snr)),
+            sigma=np.atleast_1d(np.float64(sigma)),
+            sigma_actual=np.atleast_1d(np.float64(sigma_actual_mean)),
+            errors_uncoded=np.atleast_1d(np.int64(errors_uncoded)),
+            errors_decoded=np.atleast_1d(np.int64(errors_decoded)),
+            iterations=np.atleast_1d(np.int64(iterations_sum)),
+            max_iterations=np.atleast_1d(np.int64(max_iterations)),
+            success=np.atleast_1d(np.int64(success_count)),
+            frame_errors=np.atleast_1d(np.int64(frame_errors)),
+            weight=np.atleast_1d(np.int64(weight)))
+
     def _append(self, **kw):
         if (np.asarray(kw["sigma_actual"]) == 0).any():
             raise ValueError("sigma_actual == 0 (reference asserts too)")
@@ -118,6 +164,30 @@ class BerStatistics:
     def __len__(self) -> int:
         """Number of codewords represented (not number of rows)."""
         return int(self.column("weight").sum())
+
+    @property
+    def snr_points(self) -> np.ndarray:
+        return np.unique(self.column("snr"))
+
+    def raw(self) -> dict:
+        """All columns as arrays (reference getRawStats, common.py:159)."""
+        return {f: self.column(f) for f in _FIELDS}
+
+    # --- merge (the reference's distributed reduction) ---------------------
+    def union(self, rhs: "BerStatistics") -> "BerStatistics":
+        """Merge + sort by (snr, realized snr) — common.py:167-172."""
+        out = self.add(rhs)
+        order = np.lexsort((out.column("snr_db_actual"), out.column("snr")))
+        for f in _FIELDS:
+            out._cols[f] = [out.column(f)[order]]
+        return out
+
+    def add(self, rhs: "BerStatistics") -> "BerStatistics":
+        """Concatenate without sorting — common.py:174-180."""
+        out = BerStatistics(self.codeword_size)
+        for f in _FIELDS:
+            out._cols[f] = list(self._cols[f]) + list(rhs._cols[f])
+        return out
 
     # --- aggregation -------------------------------------------------------
     def get_stats_v2(self, codeword_size: int | None = None):
@@ -149,6 +219,12 @@ class BerStatistics:
         return (scatter_snr, scatter_ber, scatter_itr, snr_axis,
                 avg_snr_axis, ber_data, avg_iters)
 
+    def get_stats(self, codeword_size: int | None = None):
+        """Deprecated 4-tuple wrapper kept for parity (common.py:162-165)."""
+        (_, _, _, snr_axis, avg_snr_axis, ber_data,
+         avg_iters) = self.get_stats_v2(codeword_size)
+        return snr_axis, avg_snr_axis, ber_data, avg_iters
+
     def frame_error_rate(self):
         """Per-SNR-point FER — new capability (reference counts bits only)."""
         snr = self.column("snr")
@@ -159,6 +235,21 @@ class BerStatistics:
         fer = np.bincount(
             idx, self.column("frame_errors").astype(np.float64), k) / count
         return snr_axis, fer
+
+    # --- persistence (resumable sweeps; the reference has none,
+    # SURVEY.md §5 checkpoint/resume) ----------------------------------
+    def save(self, path) -> None:
+        """Write all columns to an .npz for sweep checkpoint/resume."""
+        np.savez(path, codeword_size=np.int64(self.codeword_size),
+                 **{f: self.column(f) for f in _FIELDS})
+
+    @staticmethod
+    def load(path) -> "BerStatistics":
+        with np.load(path) as data:
+            out = BerStatistics(int(data["codeword_size"]))
+            for f in _FIELDS:
+                out._cols[f] = [np.asarray(data[f])]
+        return out
 
     def summary(self) -> dict:
         """Aggregate dict used by loggers and the bench harness."""

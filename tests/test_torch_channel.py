@@ -16,6 +16,10 @@ from ldpc_tpu_torch.sim import channel as ch
 from ldpc_tpu_torch.sim import stats
 from ldpc_tpu_torch.sim.evaluate import transmit
 
+# xdist runs several workers on the machine's cores: one intra-op
+# thread each, or their thread pools contend and the CPU tests crawl
+torch.set_num_threads(1)
+
 SNRS = np.array([0.0, 1.5, 3.0, 3.2, 3.4, 3.6, 6.0], np.float32)
 
 

@@ -117,10 +117,12 @@ def test_kernel_tables_walk_the_tanner_graph(ref):
     dc, dv = plan.dmax_cn, plan.dmax_vn
     t = kernel_tables(plan)
     assert t.dtype == np.int32
-    assert t.size == mb_n * (1 + 2 * dc) + nb_n * (1 + 3 * dv)
-    parts = np.split(t, np.cumsum([mb_n, mb_n * dc, mb_n * dc, nb_n,
+    assert t.size == mb_n * (2 + 2 * dc) + nb_n * (1 + 3 * dv)
+    parts = np.split(t, np.cumsum([mb_n, mb_n, mb_n * dc, mb_n * dc, nb_n,
                                    nb_n * dv, nb_n * dv]))
-    row_deg, row_nb, row_sh, col_deg, col_mb, col_d, col_sh = parts
+    row_deg, row_base, row_nb, row_sh, col_deg, col_mb, col_d, col_sh = parts
+    # the phi stash holds each block row's edges after the rows before it
+    assert np.array_equal(row_base, np.cumsum(row_deg) - row_deg)
     row_nb, row_sh = row_nb.reshape(mb_n, dc), row_sh.reshape(mb_n, dc)
     col_mb, col_d = col_mb.reshape(nb_n, dv), col_d.reshape(nb_n, dv)
     col_sh = col_sh.reshape(nb_n, dv)
@@ -142,7 +144,13 @@ def test_kernel_tables_walk_the_tanner_graph(ref):
     assert np.array_equal(h_col, code.to_dense())
 
 
-def test_near_earth_state_fits_one_block():
-    """One word's kernel state in shared memory: 44,968 bytes of state and
-    1,352 bytes of edge tables, well under a block's 227 KB."""
-    assert smem_bytes(DecodePlan.from_code(near_earth_code())) == 44968 + 1352
+@pytest.mark.parametrize("kind,store,state", [
+    ("min-sum", "bfloat16", 44968), ("normalized-min-sum", "bfloat16", 44968),
+    ("min-sum", "float32", 85848), ("offset-min-sum", "float32", 85848),
+    ("sum-product", "bfloat16", 106288), ("sum-product", "float32", 208488)])
+def test_near_earth_state_fits_one_block(kind, store, state):
+    """One word's kernel state in shared memory, plus 1,360 bytes of edge
+    tables, under a block's 227 KB (232,448 bytes) for every variant."""
+    got = smem_bytes(DecodePlan.from_code(near_earth_code()), kind, store)
+    assert got == state + 1360
+    assert got <= 232448 - 1024

@@ -1,4 +1,5 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernel, each (kind, store) variant, against its plain PyTorch
+version, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one.  This file imports no JAX, so it also runs on the machine with
@@ -11,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from ldpc_tpu_torch.codes import QCCode, near_earth_code
+from ldpc_tpu_torch.codes import QCCode, near_earth_code, wifi_code
 from ldpc_tpu_torch.ops import cuda_static
-from ldpc_tpu_torch.ops.cuda_static import (make_static_sweep_decoder,
-                                            minsum_flooding_reference)
+from ldpc_tpu_torch.ops.cuda_static import (KINDS, STORES,
+                                            flooding_reference,
+                                            make_static_sweep_decoder)
 from ldpc_tpu_torch.ops.plan import DecodePlan
 from ldpc_tpu_torch.sim.evaluate import make_staged_decoder_device
 
@@ -50,19 +52,37 @@ def _random_code(seed, z, mb, nb):
     return QCCode(z=z, shifts=tuple(shifts), name=f"rand{seed}")
 
 
-@pytest.mark.parametrize("code", [near_earth_code(),
-                                  _random_code(7, 21, 2, 6),
-                                  _random_code(8, 13, 3, 7)],
-                         ids=lambda c: c.name)
-def test_kernel_matches_plain_version(cuda, code):
-    """Same LLRs, same bf16 rounding points and f32 order: every word
-    agrees exactly (the contract asks it of converged words)."""
+def _high_degree_code():
+    """Check degree 40-50 (> 32): two sign words per check."""
+    rng = np.random.default_rng(11)
+    z, nb = 9, 20
+    row = tuple(tuple(sorted(rng.choice(z, size=int(rng.integers(2, 4)),
+                                        replace=False).tolist()))
+                for _ in range(nb))
+    return QCCode(z=z, shifts=(row,), name="highdeg")
+
+
+CODES = [near_earth_code(), _random_code(7, 21, 2, 6),
+         _random_code(8, 13, 3, 7), wifi_code(1944, 1 / 2),
+         wifi_code(1944, 5 / 6), _high_degree_code()]
+VARIANTS = [(k, s) for k in KINDS for s in STORES]
+
+
+@pytest.mark.parametrize("kind,store", VARIANTS)
+@pytest.mark.parametrize("code", CODES, ids=lambda c: c.name)
+def test_kernel_matches_plain_version(cuda, code, kind, store):
+    """Same LLRs, same rounding points and f32 orders: every word agrees
+    exactly (the contract asks it of converged words)."""
     llr = _llr(code.n, (1.0, 2.5, 3.0, 3.4, 4.0), 64, seed=3, device=cuda)
-    dec = make_static_sweep_decoder(code, 20, device=cuda)
-    before = cuda_static.launches
+    if kind == "sum-product":       # true LLRs, 2y/sigma^2 at ~3 dB
+        llr = llr * 4.0
+    dec = make_static_sweep_decoder(code, 20, kind=kind, store_dtype=store,
+                                    device=cuda)
+    before = cuda_static.launches[(kind, store)]
     got = dec(llr)
-    assert cuda_static.launches == before + 1
-    want = minsum_flooding_reference(llr, DecodePlan.from_code(code), 20)
+    assert cuda_static.launches[(kind, store)] == before + 1
+    want = flooding_reference(llr, DecodePlan.from_code(code), 20,
+                              kind=kind, store_dtype=store)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
@@ -75,7 +95,7 @@ def test_staged_equals_single_pass_on_card(cuda):
     single = make_static_sweep_decoder(code, 50, device=cuda)(llr)
     for cap in (64, 512):
         staged = make_staged_decoder_device(code, 50, redo_capacity=cap,
-                                            device=cuda)
+                                            engine="cuda", device=cuda)
         for a, b in zip(staged(llr), single):
             assert torch.equal(a, b)
 

@@ -13,12 +13,22 @@ import sys
 import pytest
 import torch
 
-from ldpc_tpu_torch.codes import near_earth_code
+from ldpc_tpu_torch import cli
+from ldpc_tpu_torch.codes import near_earth_code, wifi_code
 from ldpc_tpu_torch.ops.cuda_static import make_static_sweep_decoder
-from ldpc_tpu_torch.sim.channel import snr_db_to_sigma, transmit_zero_codeword
-from ldpc_tpu_torch.sim.evaluate import (make_staged_decoder_device,
-                                         make_staged_sweep_device)
+from ldpc_tpu_torch.ops.decoder import decode
+from ldpc_tpu_torch.sim.channel import (epsilon_probe, snr_db_to_sigma,
+                                        transmit_zero_codeword)
+from ldpc_tpu_torch.sim.evaluate import (evaluate_code,
+                                         evaluate_epsilon_probe,
+                                         make_staged_decoder_device,
+                                         make_staged_sweep_device,
+                                         sweep_step)
 from ldpc_tpu_torch.utils.device import default_device
+
+# xdist runs several workers on the machine's cores: one intra-op
+# thread each, or their thread pools contend and the CPU tests crawl
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ldpc_tpu_torch"
@@ -72,7 +82,10 @@ def test_port_and_chip_smoke_import_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     for m in ("ldpc_tpu_torch.ops.cuda_static", "ldpc_tpu_torch.sim.evaluate",
-              "ldpc_tpu_torch.csrc", "ldpc_tpu_torch.codes.ccsds"):
+              "ldpc_tpu_torch.csrc", "ldpc_tpu_torch.codes.ccsds",
+              "ldpc_tpu_torch.codes.wifi", "ldpc_tpu_torch.ops.decoder",
+              "ldpc_tpu_torch.ops.oracle", "ldpc_tpu_torch.sim.stats",
+              "ldpc_tpu_torch.cli"):
         assert m in res["modules"]
 
 
@@ -82,15 +95,26 @@ def test_shift_table_is_the_port_own_copy():
         (ROOT / "ldpc_tpu" / "data" / "ccsds_near_earth.json").read_bytes()
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.delenv("LDPC_TPU_PLATFORM", raising=False)
     if torch.cuda.is_available():
         assert default_device().type == "cuda"
         return
-    code = near_earth_code()
+    code, wifi = near_earth_code(), wifi_code()
     calls = [default_device,
              lambda: make_static_sweep_decoder(code, 4),
+             lambda: make_static_sweep_decoder(wifi, 4, kind="sum-product",
+                                               store_dtype="float32"),
              lambda: make_staged_decoder_device(code),
+             lambda: make_staged_decoder_device(code, engine="cuda"),
              lambda: make_staged_sweep_device(code),
+             lambda: sweep_step(wifi),
+             lambda: evaluate_code(wifi, [3.0], 4, 5),
+             lambda: evaluate_code(wifi, [3.0], 4, 5, engine="cuda"),
+             lambda: evaluate_epsilon_probe(wifi, max_iters=4),
+             lambda: decode(wifi, [[-1.0] * wifi.n], 4),
+             lambda: epsilon_probe(16),
+             lambda: cli.main(["probe", "--iterations", "4"]),
              lambda: transmit_zero_codeword(2, 16, 3.0),
              lambda: snr_db_to_sigma(3.0)]
     for call in calls:

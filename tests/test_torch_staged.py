@@ -23,6 +23,10 @@ from ldpc_tpu_torch.sim.evaluate import (default_redo_capacity,
                                          make_staged_sweep_device,
                                          staged_decode_counts)
 
+# xdist runs several workers on the machine's cores: one intra-op
+# thread each, or their thread pools contend and the CPU tests crawl
+torch.set_num_threads(1)
+
 # (SNR dB, numpy seed) -> the branch the 8-word batch takes
 CASES = [(2.5, 1, "many"), (3.6, 1, "many"), (4.2, 1, "few")]
 
@@ -45,7 +49,8 @@ def test_staged_matches_jax_pallas_cascade(jax_staged, snr, seed, branch):
     llr = _llr(code.n, snr, seed)
     want = [np.asarray(x) for x in jax_staged(jnp.asarray(llr))]
     dec = make_staged_decoder_device(code, 8, phase1_iters=3,
-                                     redo_capacity=4, device="cpu")
+                                     redo_capacity=4, engine="cuda",
+                                     device="cpu")
     got = [x.numpy() for x in dec(torch.from_numpy(llr))]
     assert dec.last_branches == [branch]
     # every word, converged or not: same kernel arithmetic on both sides
@@ -61,10 +66,12 @@ def test_cascade_equals_single_pass(snr):
     single = make_static_sweep_decoder(code, 10, device="cpu")(llr)
     for cap in (1, 6):
         dec = make_staged_decoder_device(code, 10, phase1_iters=(3, 6),
-                                         redo_capacity=cap, device="cpu")
+                                         redo_capacity=cap, engine="cuda",
+                                         device="cpu")
         for a, b in zip(dec(llr), single):
             assert torch.equal(a, b)
-    np_out = staged_decode_counts(code, llr, 10, phase1_iters=3)
+    np_out = staged_decode_counts(code, llr, 10, phase1_iters=3,
+                                  engine="cuda")
     for a, b in zip(np_out, single):
         assert np.array_equal(a, b.numpy())
 
@@ -96,7 +103,7 @@ def test_sweep_step_contract():
     code = near_earth_code()
     b = 6
     step = make_staged_sweep_device(
-        code, 8, phase1_iters=3, device="cpu",
+        code, 8, phase1_iters=3, engine="cuda", device="cpu",
         generator=torch.Generator().manual_seed(9))
     out = step(torch.full((b,), 3.4))
     assert set(out) == {"errors_uncoded", "errors_decoded", "iterations",

@@ -21,9 +21,13 @@ from ldpc_tpu_torch.codes import code_from_dict, near_earth_code
 from ldpc_tpu_torch.codes.io import code_to_dict
 from ldpc_tpu_torch.ops import cuda_static
 from ldpc_tpu_torch.ops.cuda_static import (make_static_sweep_decoder,
-                                            minsum_flooding_reference,
+                                            flooding_reference,
                                             static_decode_counts)
 from ldpc_tpu_torch.ops.plan import DecodePlan
+
+# xdist runs several workers on the machine's cores: one intra-op
+# thread each, or their thread pools contend and the CPU tests crawl
+torch.set_num_threads(1)
 
 
 def _llrs(n, snrs, words_per_snr, seed, nonfinite=True):
@@ -105,11 +109,11 @@ def test_plain_version_zero_iterations_and_empty_batch():
     code = near_earth_code()
     plan = DecodePlan.from_code(code)
     llr = torch.from_numpy(_llrs(code.n, (3.0,), 3, seed=2, nonfinite=False))
-    e, it, ok = minsum_flooding_reference(llr, plan, 0)
+    e, it, ok = flooding_reference(llr, plan, 0)
     assert torch.equal(it, torch.zeros(3, dtype=torch.int32))
     assert torch.equal(e, (llr > 0).sum(-1, dtype=torch.int32))
     assert not ok.any()
-    e, it, ok = minsum_flooding_reference(llr[:0], plan, 5)
+    e, it, ok = flooding_reference(llr[:0], plan, 5)
     assert e.shape == it.shape == ok.shape == (0,)
 
 
@@ -117,8 +121,8 @@ def test_plain_version_chunking_is_invisible():
     code = near_earth_code()
     plan = DecodePlan.from_code(code)
     llr = torch.from_numpy(_llrs(code.n, (3.2,), 6, seed=4))
-    whole = minsum_flooding_reference(llr, plan, 10)
-    parts = minsum_flooding_reference(llr, plan, 10, chunk=4)
+    whole = flooding_reference(llr, plan, 10)
+    parts = flooding_reference(llr, plan, 10, chunk=4)
     for a, b in zip(whole, parts):
         assert torch.equal(a, b)
 
@@ -127,9 +131,9 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     code = near_earth_code()
     dec = make_static_sweep_decoder(code, 4, device="cpu")
     good = torch.zeros(2, code.n)
-    before = cuda_static.launches
+    before = sum(cuda_static.launches.values())
     dec(good)
-    assert cuda_static.launches == before     # the CPU runs no kernel
+    assert sum(cuda_static.launches.values()) == before   # no CPU kernel
     with pytest.raises(TypeError):
         dec(good.double())
     with pytest.raises(ValueError):
