@@ -38,7 +38,29 @@ no result line:
            f32 state (exact), and a 1,024-word 802.11n rate-1/2 decode on the
            card against the same decode on the CPU (exact) and against the
            kernel (reported).
-10. the kernels line, the card line again, and the result line.
+10. new    the layered schedule (B3), int8 Q4.3 state (B5) and the popcount
+           sign (B6): (a) near-earth layered bf16, 6 -> 50, and (b) int8,
+           12 -> 50, at the main path's protocol (one warm and three timed
+           batches a point), FER at 3.0 and 3.4 dB held to the JAX package's
+           intervals; (c) popcount on the main path's own LLRs (its
+           generator states replayed), every word equal to the stored-sign
+           decode; (d) each of the 30 new variants against its plain version
+           (near-earth 2,048 words at 3.0 and 3.4 dB, 802.11n rates 1/2 and
+           5/6 2,048 each, the d_c > 32 code 1,024; 50 iterations) and timed
+           (the three main-path variants at their near-earth stage-1 shape,
+           the rest at 32,768 802.11n rate-5/6 words, 12 iterations);
+           (e) `cli evaluate --code wifi --engine cuda --schedule layered
+           --store-dtype int8`; (f) every new variant once through
+           evaluate_code.
+11. the kernels line, the card line again, and the result line.
+
+Every driven path (the main path, each evaluate run of phases 8 and 10,
+each near-earth path of phase 10) clears the launch counts just before it
+and reads them just after; a row of the kernels line gives the launches of
+the path meant to drive it (`path`, `launches`) and those of every path
+that ran it (`launches_by_path`), and the run fails if that path launched
+it no time.  Launches that compare a kernel with its plain version, or time
+it, are counted on no path.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
 no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/).
@@ -48,6 +70,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,9 +84,11 @@ from ldpc_tpu_torch.codes import QCCode, near_earth_code, wifi_code
 from ldpc_tpu_torch.ops import cuda_static
 from ldpc_tpu_torch.ops.cuda_static import (KINDS, STORES,
                                             flooding_reference,
+                                            layered_reference,
                                             make_static_sweep_decoder)
 from ldpc_tpu_torch.sim.channel import epsilon_probe
-from ldpc_tpu_torch.sim.evaluate import (default_redo_capacity,
+from ldpc_tpu_torch.sim.evaluate import (StagedDecoder,
+                                         default_redo_capacity,
                                          evaluate_code,
                                          make_staged_decoder_device,
                                          make_staged_sweep_device, transmit)
@@ -77,7 +102,9 @@ BATCH = 32768
 SNR_POINTS = (3.0, 3.2, 3.4, 3.6)
 MAX_ITERS = 50
 PHASE1_ITERS = 12
+REDO_CAP = 3 * BATCH // 16   # the bench protocol's capacity (bench.py)
 TIMED_BATCHES = 3
+KERNEL_REPS = 7         # timed calls of a kernel (median)
 CHECK_WORDS = 2048
 CHECK_SNRS = (3.0, 3.4)
 PROFILE_SNRS = (3.0, 3.4)
@@ -109,6 +136,41 @@ JAX_SP_FER = {(2 / 3, 0.0): (0.25806, 0.24870, 0.26764),
               (5 / 6, 2.5): (0.05334, 0.04868, 0.05842)}
 WIFI_SEED = 460101          # wifiCUDA.testWifi's seed (cli bench wifi)
 
+# Phase 10.  The near-earth paths of B3 and B5, at the main path's protocol.
+LAYERED_PHASE1 = 6          # scripts/layered_ab.py "layered-p6"
+# FER and 95% Wilson interval of the JAX package's Pallas kernel, 32,768
+# words a point: layered-p6 bf16 (docs/layered_ab.json, "results" ->
+# "layered-p6" -> "fer", "fer_ci95") and int8 12 -> 50
+# (docs/quantized_ber.json, "stores" -> "int8", from "fer" and "words").
+JAX_LAYERED_FER = {
+    3.0: (0.850311279296875, 0.8464073128479274, 0.8541331169581291),
+    3.4: (0.018218994140625, 0.016826346850762793, 0.019724592660674365)}
+JAX_INT8_FER = {
+    3.0: (0.947601318359375, 0.9451357622135991, 0.9499619403936682),
+    3.4: (0.067962646484375, 0.06528792550197096, 0.07073865281594793)}
+# (code, SNR dB, words) of each kernel check of the new variants
+NEW_CHECKS = (("near-earth", 3.0, 2048), ("near-earth", 3.4, 2048),
+              ("r1/2", -1.5, 2048), ("r5/6", 2.5, 2048),
+              ("highdeg", 3.0, 1024))
+MINSUM = KINDS[:3]
+FLOAT_STORES = ("bfloat16", "float32")   # phase 7's stores (B1, B2, B4)
+# the variants of B3, B5 and B6: (kind, store, schedule, popcount_sign)
+NEW_VARIANTS = [(k, s, sched, pc) for k in MINSUM for s in STORES
+                for sched in ("flooding", "layered") for pc in (False, True)
+                if (sched, pc) != ("flooding", False) or s == "int8"]
+# the variant of each near-earth path of phase 10, and its stage-1 budget
+NEW_MAIN = {("min-sum", "bfloat16", "layered", False): LAYERED_PHASE1,
+            ("min-sum", "int8", "flooding", False): PHASE1_ITERS,
+            ("min-sum", "bfloat16", "flooding", True): PHASE1_ITERS}
+# The driven paths, and the launches each read just after it ran.
+MAIN_PATH = "near-earth main"
+NEW_PATHS = {("min-sum", "bfloat16", "layered", False): "near-earth layered",
+             ("min-sum", "int8", "flooding", False): "near-earth int8",
+             ("min-sum", "bfloat16", "flooding", True):
+                 "near-earth popcount replay"}
+CLI_PATH = "evaluate (e) cli layered int8"
+PATH_LAUNCHES: dict[str, dict] = {}
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -126,9 +188,21 @@ PHI_OPS = 12 + 18
 OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
        "offset-min-sum": (10, 5),
        "sum-product": (14 + 2 * PHI_OPS, 8 + PHI_OPS)}
+# Layered (pallas layered_body), per edge: the syndrome pass 1 (sign test)
+# in every sweep; in a sweep that updates, the row update as flooding phase
+# A (8) and the delta: two rebuilt messages (select, sign; +1 normalized,
+# +2 offset, each), a subtract and an add (6).  popcount_sign and the int8
+# store change no per-edge count (the fold is per check; converts are not
+# counted, as for bf16).
+OPS_LAYERED = {"min-sum": (1, 8 + 6), "normalized-min-sum": (1, 9 + 8),
+               "offset-min-sum": (1, 10 + 10)}
 
 SOURCE = "ldpc_tpu_torch/csrc/flooding.cu"
 TPU_CALL = "ldpc_tpu/ops/pallas_static.py:621"
+TPU_NEW = {"layered": "B3 ldpc_tpu/ops/pallas_static.py:566-599 layered_body",
+           "int8": "B5 ldpc_tpu/ops/pallas_static.py:195-223 _st/_ld/_st_raw",
+           "popcount": "B6 ldpc_tpu/ops/pallas_static.py:364-377 "
+                       "_sign_from_bits"}
 TPU_KERNEL = {
     "min-sum": "B1 ldpc_tpu/ops/pallas_static.py:170 _build_kernel "
                "(flooding, min-sum)",
@@ -149,25 +223,25 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, dev: torch.device, reps: int = 1, warm: bool = True) -> float:
-    """Milliseconds per call (after one warm-up call unless the caller has
-    just made one): CUDA events on the card."""
-    if warm:
-        fn()
-    sync(dev)
+def time_ms(fn, dev: torch.device, reps: int = 1) -> float:
+    """Median milliseconds of ``reps`` calls, each timed alone with CUDA
+    events on the card.  An untimed call queued ahead of each keeps the
+    card busy while the host launches the timed one, so the host's cost of
+    a launch is not counted."""
     if dev.type != "cuda":
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t) * 1e3 / reps
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
+        fn()
+        return float(np.median([timed_once(fn, dev)[1] for _ in range(reps)]))
+    times = []
     for _ in range(reps):
         fn()
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(stop) / reps
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
 
 
 def timed_once(fn, dev: torch.device):
@@ -200,11 +274,30 @@ def llr_batch(code: QCCode, b: int, snr: float, gen: torch.Generator, dev,
     return transmit(code.n, snr_db, generator=gen, scale_llr=scale_llr)[0]
 
 
+def key(kind: str, store: str, schedule: str = "flooding",
+        popcount: bool = False) -> tuple:
+    """The launch counter's key of a kernel variant."""
+    return (kind, store, schedule, popcount)
+
+
+def record_path(path: str) -> dict:
+    """The launch counts of the path just run (cleared just before it), kept
+    under its name for the kernels line."""
+    got = dict(cuda_static.launches)
+    PATH_LAUNCHES[path] = got
+    return got
+
+
+def variant_name(kind, store, schedule="flooding", popcount=False) -> str:
+    return f"{schedule}[{kind},{store}{',popcount' if popcount else ''}]"
+
+
 def bound_ms(b: int, n: int, edges: int, iters, success, max_iters: int,
-             kind: str = "min-sum") -> tuple[float, str]:
+             kind: str = "min-sum",
+             schedule: str = "flooding") -> tuple[float, str]:
     """Least time for this work on an H100: bytes (LLRs in, 12 B a word out)
     over HBM rate vs the f32 operations these words needed over peak."""
-    ops_a, ops_b = OPS[kind]
+    ops_a, ops_b = (OPS_LAYERED if schedule == "layered" else OPS)[kind]
     it = iters.long().cpu()
     phase_a = torch.where(success.cpu(), it + 1,
                           torch.full_like(it, max_iters + 1))
@@ -255,10 +348,14 @@ def phase_build() -> dict:
     rep = build_report("flooding")
     log("build", f"flooding.cu built in {rep['seconds']:.1f} s "
         f"(cached: {rep['cached']})")
-    for line in rep["ptxas"].splitlines():
-        if any(k in line for k in ("Compiling", "registers", "spill",
-                                   "bytes stack")):
-            log("build", "ptxas " + line.strip())
+    ptxas = rep["ptxas"]
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", ptxas)]
+    stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", ptxas)]
+    log("build", f"ptxas: {ptxas.count('Compiling entry function')} kernel "
+        f"instances, {min(regs, default=0)}-{max(regs, default=0)} "
+        f"registers a thread, {sum(spills)} bytes of spills, largest stack "
+        f"frame {max(stack, default=0)} bytes")
     return rep
 
 
@@ -290,10 +387,9 @@ def phase_kernel(dev, code, gen) -> dict:
                                  f"on {c['mismatched_converged']} converged "
                                  "words")
         if b == BATCH:
-            ms = time_ms(lambda: dec(llr), dev, reps=3)
-            plain_ms = time_ms(lambda: flooding_reference(llr, plan,
-                                                          max_iters),
-                               dev, warm=False)
+            ms = time_ms(lambda: dec(llr), dev, reps=KERNEL_REPS)
+            _, plain_ms = timed_once(lambda: flooding_reference(
+                llr, plan, max_iters), dev)
             bnd, by = bound_ms(b, code.n, edges, kern[1], kern[2], max_iters)
             timing[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                              "bound_by": by}
@@ -317,19 +413,22 @@ def phase_kernel(dev, code, gen) -> dict:
             "smem": cuda_static.smem_bytes(plan)}
 
 
-def phase_main(dev, code, gen) -> dict:
-    step = make_staged_sweep_device(code, MAX_ITERS, phase1_iters=PHASE1_ITERS,
-                                    engine="cuda", device=dev, generator=gen)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+def drive_sweep(dev, code, step, tag: str, path: str) -> dict:
+    """One warm and TIMED_BATCHES timed batches of BATCH words a point
+    through a staged sweep, with the launch counts cleared just before and
+    read just after (kept as ``path``): decoded bit/s, BER, FER,
+    iterations, cascade branch, launches, and each batch's outputs and
+    generator state (to replay its LLRs)."""
+    timed = TIMED_BATCHES
     stats = BerStatistics(code.n)
     points = {}
     cuda_static.launches.clear()
     for snr in SNR_POINTS:
         before = sum(cuda_static.launches.values())
         snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
-        outs, secs, branches = [], [], []
-        for t in range(1 + TIMED_BATCHES):
+        outs, secs, branches, states = [], [], [], []
+        for t in range(1 + timed):
+            states.append(step.generator.get_state())
             t0 = time.perf_counter()
             out = step(snr_db)
             sync(dev)
@@ -353,26 +452,38 @@ def phase_main(dev, code, gen) -> dict:
                        "frame_errors": fe, "words": words,
                        "avg_iterations": iters / words,
                        "branches": branches,
-                       "launches": sum(cuda_static.launches.values()) - before}
+                       "launches": sum(cuda_static.launches.values()) - before,
+                       "outs": outs, "states": states}
         p = points[snr]
-        log("main", f"{snr} dB: {p['bit_per_s']:.6g} bit/s (median "
-            f"{med * 1e3:.2f} ms of {TIMED_BATCHES}), BER {p['ber']:.4e}, "
+        log(tag, f"{snr} dB: {p['bit_per_s']:.6g} bit/s (median "
+            f"{med * 1e3:.2f} ms of {timed}), BER {p['ber']:.4e}, "
             f"FER {p['fer']:.5f}, avg iters {p['avg_iterations']:.3f}, "
             f"branch {branches}, launches {p['launches']}")
-    launches = dict(cuda_static.launches)
-    if launches.get(("min-sum", "bfloat16"), 0) == 0 or any(
-            p["launches"] == 0 for p in points.values()):
-        raise AssertionError(f"main path launched {launches}; a point ran "
-                             "without the kernel")
+    launches = record_path(path)
+    if any(p["launches"] == 0 for p in points.values()):
+        raise AssertionError(f"{tag}: a point ran without the kernel "
+                             f"({launches})")
+    return {"points": points, "launches": launches, "stats": stats}
+
+
+def phase_main(dev, code, gen) -> dict:
+    step = make_staged_sweep_device(code, MAX_ITERS, phase1_iters=PHASE1_ITERS,
+                                    redo_capacity=REDO_CAP, engine="cuda",
+                                    device=dev, generator=gen)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = drive_sweep(dev, code, step, "main", MAIN_PATH)
+    launches = out["launches"]
+    if launches.get(key("min-sum", "bfloat16"), 0) == 0:
+        raise AssertionError(f"main path launched {launches}")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
     log("main", f"kernel launches {launches}; "
         f"max_memory_allocated {peak} bytes")
-    return {"points": points, "launches": launches, "stats": stats,
-            "max_memory_allocated": peak, "step": step}
+    return {**out, "max_memory_allocated": peak, "step": step}
 
 
-def phase_profile(dev, step) -> None:
+def phase_profile(dev, step, tag: str = "profile") -> None:
     """One more batch at 3.0 and 3.4 dB under torch.profiler: device time
     by kernel and the device's busy share of the batch's wall time."""
     from torch.autograd import DeviceType
@@ -393,16 +504,16 @@ def phase_profile(dev, step) -> None:
                 row[0] += 1
                 row[1] += e.time_range.elapsed_us()
         if not by_name:
-            log("profile", f"{snr} dB: the profiler saw no device events; "
+            log(tag, f"{snr} dB: the profiler saw no device events; "
                 "device time not measured")
             continue
         busy = sum(t for _, t in by_name.values())
-        log("profile", f"{snr} dB: batch {wall_us / 1e3:.2f} ms wall under "
+        log(tag, f"{snr} dB: batch {wall_us / 1e3:.2f} ms wall under "
             f"the profiler, device busy {busy / 1e3:.2f} ms "
             f"({100 * busy / wall_us:.1f}%)")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
         for name, (count, t) in top:
-            log("profile", f"{snr} dB:   {t / 1e3:9.3f} ms  {count:3d}x  "
+            log(tag, f"{snr} dB:   {t / 1e3:9.3f} ms  {count:3d}x  "
                 f"{name[:90]}")
 
 
@@ -418,16 +529,18 @@ def check_outputs(o: dict, n: int) -> None:
         raise AssertionError("errors out of range")
 
 
-def phase_band(points: dict) -> None:
-    for snr, (fer, lo, hi) in JAX_FER.items():
+def phase_band(points: dict, jax_fer: dict = JAX_FER,
+               tag: str = "band") -> None:
+    for snr, (fer, lo, hi) in jax_fer.items():
         p = points[snr]
         q, qlo, qhi = wilson_interval(p["frame_errors"], p["words"])
         overlap = qlo <= hi and lo <= qhi
-        log("band", f"{snr} dB: port FER {q:.5f} [{qlo:.5f}, {qhi:.5f}] "
+        log(tag, f"{snr} dB: port FER {q:.5f} [{qlo:.5f}, {qhi:.5f}] "
             f"({p['words']} words) vs JAX {fer:.5f} [{lo:.5f}, {hi:.5f}]: "
             f"{'overlap' if overlap else 'NO OVERLAP'}")
         if not overlap:
-            raise AssertionError(f"FER at {snr} dB outside the JAX band")
+            raise AssertionError(f"{tag}: FER at {snr} dB outside the JAX "
+                                 "band")
 
 
 def phase_variants(dev, gen) -> dict:
@@ -438,7 +551,7 @@ def phase_variants(dev, gen) -> dict:
     out = {}
     for kind in KINDS:
         sp = kind == "sum-product"
-        for store in STORES:
+        for store in FLOAT_STORES:
             row = {"checked": 0, "mismatched": 0, "mismatched_converged": 0,
                    "max_abs_err": 0}
             for cname, code in codes.items():
@@ -473,7 +586,7 @@ def phase_variants(dev, gen) -> dict:
                             scale_llr=sp)
             dec = make_static_sweep_decoder(code, PHASE1_ITERS, kind=kind,
                                             store_dtype=store, device=dev)
-            ms = time_ms(lambda: dec(llr), dev, reps=3)
+            ms = time_ms(lambda: dec(llr), dev, reps=KERNEL_REPS)
             kern = dec(llr)
             plain, plain_ms = timed_once(
                 lambda: flooding_reference(llr, dec.plan, PHASE1_ITERS,
@@ -552,18 +665,16 @@ def _sweep(dev, code, snrs, **kw):
 
 
 def phase_evaluate(dev) -> dict:
-    launches = collections.Counter()
     out = {}
     # (a) the reference's wifi preset through the CLI's own function
     cuda_static.launches.clear()
     bench = run_cli(dev, ["bench", "wifi", "--transmissions", str(BATCH),
                           "--batch-size", str(BATCH), "--engine", "cuda"])
-    got = dict(cuda_static.launches)
-    launches.update(got)
+    got = record_path("evaluate (a) bench wifi")
     log("evaluate", f"(a) bench wifi: status {bench['status']!r}, "
         f"{bench['throughput_bit_per_s']:.6g} bit/s over {bench['seconds']:.2f}"
         f" s, BER {bench['ber']}; launches {got}")
-    if got.get(("min-sum", "bfloat16"), 0) == 0:
+    if got.get(key("min-sum", "bfloat16"), 0) == 0:
         raise AssertionError("bench wifi ran without the kernel")
     out["bench_wifi"] = bench
     # (b) the sum-product waterfall, f32 state, true LLRs
@@ -588,10 +699,9 @@ def phase_evaluate(dev) -> dict:
                 raise AssertionError(f"sum-product FER at rate {rate:.4f}, "
                                      f"{snr} dB outside the JAX band")
             sp_points[f"{rate:.4f}@{snr}"] = p
-    got = dict(cuda_static.launches)
-    launches.update(got)
+    got = record_path("evaluate (b) sum-product waterfall")
     log("evaluate", f"(b) launches {got}")
-    if got.get(("sum-product", "float32"), 0) == 0:
+    if got.get(key("sum-product", "float32"), 0) == 0:
         raise AssertionError("the sum-product sweep ran without the kernel")
     out["sum_product"] = sp_points
     # (c) normalized and offset min-sum, bf16 state, rate 5/6 at 3.0 dB
@@ -600,11 +710,10 @@ def phase_evaluate(dev) -> dict:
         cuda_static.launches.clear()
         _, reps = _sweep(dev, code, [3.0], kind=kind,
                          store_dtype="bfloat16", seed=WIFI_SEED)
-        got = dict(cuda_static.launches)
-        launches.update(got)
+        got = record_path(f"evaluate (c) {kind}/bfloat16")
         _log_point(f"(c) {kind} bf16 r5/6", 3.0, reps[3.0])
         log("evaluate", f"(c) {kind}: launches {got}")
-        if got.get((kind, "bfloat16"), 0) == 0:
+        if got.get(key(kind, "bfloat16"), 0) == 0:
             raise AssertionError(f"{kind} sweep ran without the kernel")
         out[kind] = reps[3.0]
     # (d) the other (kind, store) pairs once each through the same path
@@ -616,15 +725,12 @@ def phase_evaluate(dev) -> dict:
         cuda_static.launches.clear()
         _, reps = _sweep(dev, code, [snr], kind=kind, scale_llr=sp,
                          store_dtype=store, seed=WIFI_SEED)
-        got = dict(cuda_static.launches)
-        launches.update(got)
+        got = record_path(f"evaluate (d) {kind}/{store}")
         _log_point(f"(d) {kind} {store} r5/6", snr, reps[snr])
-        if got.get((kind, store), 0) == 0:
+        if got.get(key(kind, store), 0) == 0:
             raise AssertionError(f"{kind}/{store} sweep ran without the "
                                  "kernel")
         out[f"{kind}/{store}"] = reps[snr]
-    log("evaluate", f"launches on the evaluate path: {dict(launches)}")
-    out["launches"] = launches
     return out
 
 
@@ -693,7 +799,175 @@ def phase_torch(dev, gen) -> dict:
             "both_converged_mismatch": both, **c}
 
 
+def phase_new_paths(dev, code, gen, main: dict) -> None:
+    """(a) layered 6 -> 50 and (b) int8 12 -> 50 on near-earth at the main
+    path's protocol, FER held to the JAX intervals; (c) popcount on the
+    main path's own LLRs, every word equal to the stored-sign decode."""
+    for tag, phase1, kw, band in (
+            ("layered", LAYERED_PHASE1, dict(schedule="layered"),
+             JAX_LAYERED_FER),
+            ("int8", PHASE1_ITERS, dict(store_dtype="int8"), JAX_INT8_FER)):
+        step = make_staged_sweep_device(code, MAX_ITERS, phase1_iters=[phase1],
+                                        redo_capacity=REDO_CAP, engine="cuda",
+                                        device=dev, generator=gen, **kw)
+        k = key("min-sum", kw.get("store_dtype", "bfloat16"),
+                kw.get("schedule", "flooding"))
+        res = drive_sweep(dev, code, step, f"10{tag}", NEW_PATHS[k])
+        if res["launches"].get(k, 0) == 0:
+            raise AssertionError(f"the {tag} path launched {res['launches']}")
+        phase_band(res["points"], band, f"10{tag}")
+        phase_profile(dev, step, f"10{tag}")
+    # (c) replay each batch of the main path: same generator state, same
+    # LLRs; the popcount decode must give every word's outputs again
+    pop = StagedDecoder(code, MAX_ITERS, phase1_iters=PHASE1_ITERS,
+                        redo_capacity=REDO_CAP, engine="cuda",
+                        popcount_sign=True, device=dev)
+    g = torch.Generator(device=dev)
+    cuda_static.launches.clear()
+    words = 0
+    for snr, p in main["points"].items():
+        snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
+        for state, o in zip(p["states"], p["outs"]):
+            g.set_state(state)
+            llr, _, _, unc = transmit(code.n, snr_db, generator=g)
+            if not np.array_equal(unc.cpu().numpy(), o["errors_uncoded"]):
+                raise AssertionError("popcount: the replayed LLRs differ")
+            got = [x.cpu().numpy() for x in pop(llr)]
+            want = (o["errors_decoded"], o["iterations"], o["success"])
+            bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+            if bad:
+                raise AssertionError(f"popcount at {snr} dB: {bad} outputs "
+                                     "differ from the stored-sign decode")
+            words += BATCH
+    launches = record_path(NEW_PATHS[key("min-sum", "bfloat16", "flooding",
+                                         True)])
+    log("10popcount", f"{words} words of the main path decoded again with "
+        f"popcount_sign: all equal to the stored-sign decode; launches "
+        f"{launches}")
+    if launches.get(key("min-sum", "bfloat16", "flooding", True), 0) == 0:
+        raise AssertionError(f"the popcount path launched {launches}")
+
+
+def phase_new_variants(dev, gen) -> dict:
+    """Each new variant against its plain version on the same LLRs (50
+    iterations), then timed beside its plain version and its bound."""
+    codes = {"r1/2": wifi_code(1944, 1 / 2), "r5/6": wifi_code(1944, 5 / 6),
+             "near-earth": near_earth_code(), "highdeg": high_degree_code()}
+    checks = [(cname, snr, llr_batch(codes[cname], b, snr, gen, dev))
+              for cname, snr, b in NEW_CHECKS]
+    out = {}
+    for kind, store, sched, pc in NEW_VARIANTS:
+        name = variant_name(kind, store, sched, pc)
+        ref = layered_reference if sched == "layered" else flooding_reference
+        opts = dict(kind=kind, store_dtype=store, popcount_sign=pc)
+        row = {"checked": 0, "mismatched": 0, "mismatched_converged": 0,
+               "max_abs_err": 0}
+
+        def check(code, llr, max_iters, kern=None):
+            dec = make_static_sweep_decoder(code, max_iters, schedule=sched,
+                                            device=dev, **opts)
+            kern = dec(llr) if kern is None else kern
+            plain = ref(llr, dec.plan, max_iters, **opts)
+            sync(dev)
+            c = compare(kern, plain)
+            row["checked"] += llr.shape[0]
+            for k in ("mismatched", "mismatched_converged"):
+                row[k] += c[k]
+            row["max_abs_err"] = max(row["max_abs_err"], c["max_abs_err"])
+            return dec, kern
+
+        for cname, snr, llr in checks:
+            check(codes[cname], llr, MAX_ITERS)
+        # time: a near-earth path's own stage-1 shape, else the evaluate
+        # path's (32,768 802.11n rate-5/6 words, 12 iterations, 3.0 dB)
+        main_it = NEW_MAIN.get((kind, store, sched, pc))
+        cname, it, snr = (("near-earth", main_it, 3.4) if main_it
+                          else ("r5/6", PHASE1_ITERS, 3.0))
+        code = codes[cname]
+        llr = llr_batch(code, BATCH, snr, gen, dev)
+        dec = make_static_sweep_decoder(code, it, schedule=sched, device=dev,
+                                        **opts)
+        ms = time_ms(lambda: dec(llr), dev, reps=KERNEL_REPS)
+        kern = dec(llr)
+        _, plain_ms = timed_once(lambda: ref(llr, dec.plan, it, **opts), dev)
+        check(code, llr, it, kern)
+        bnd, by = bound_ms(BATCH, code.n, code.num_edges, kern[1], kern[2],
+                           it, kind, sched)
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                   smem=cuda_static.smem_bytes(dec.plan, kind, store, sched,
+                                               pc),
+                   shape=f"{BATCH} words x {code.n} ({cname}), {it} "
+                         f"iterations, {snr} dB")
+        log("10variants", f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+            f"ms, bound {bnd:.4f} ms ({by}) at {row['shape']}, {row['smem']} "
+            f"bytes of shared memory; {row['mismatched']} mismatched "
+            f"({row['mismatched_converged']} converged) of {row['checked']} "
+            "words checked")
+        if row["mismatched_converged"]:
+            raise AssertionError(f"{name}: {row['mismatched_converged']} "
+                                 "converged words differ from the plain "
+                                 "version")
+        out[(kind, store, sched, pc)] = row
+    return out
+
+
+def phase_new_evaluate(dev) -> None:
+    """(e) the CLI's evaluate with layered + int8 on 802.11n; (f) every new
+    variant once through evaluate_code (rate 5/6, 3.0 dB, 12 -> 50)."""
+    cuda_static.launches.clear()
+    st = run_cli(dev, ["evaluate", "--code", "wifi", "--engine", "cuda",
+                       "--schedule", "layered", "--store-dtype", "int8",
+                       "--transmissions", str(BATCH), "--batch-size",
+                       str(BATCH)])
+    got = record_path(CLI_PATH)
+    log("10evaluate", f"(e) cli evaluate wifi layered int8: "
+        f"{json.dumps(st.summary())}; launches {got}")
+    if got.get(key("min-sum", "int8", "layered"), 0) == 0:
+        raise AssertionError("cli evaluate layered int8 ran without the "
+                             "kernel")
+    code = wifi_code(1944, 5 / 6)
+    for kind, store, sched, pc in NEW_VARIANTS:
+        cuda_static.launches.clear()
+        _, reps = _sweep(dev, code, [3.0], kind=kind, store_dtype=store,
+                         schedule=sched, popcount_sign=pc, seed=WIFI_SEED)
+        got = record_path(f"evaluate (f) {variant_name(kind, store, sched, pc)}")
+        _log_point(f"(f) {variant_name(kind, store, sched, pc)} r5/6", 3.0,
+                   reps[3.0])
+        if got.get(key(kind, store, sched, pc), 0) == 0:
+            raise AssertionError(f"{variant_name(kind, store, sched, pc)} "
+                                 "sweep ran without the kernel")
+
+
+def driving_path(kind, store, schedule="flooding", popcount=False) -> str:
+    """The path of this run that is meant to drive a variant."""
+    k = key(kind, store, schedule, popcount)
+    if k == key("min-sum", "bfloat16"):
+        return MAIN_PATH
+    if k in NEW_PATHS:
+        return NEW_PATHS[k]
+    if k == key("min-sum", "int8", "layered"):
+        return CLI_PATH
+    if schedule != "flooding" or popcount or store == "int8":
+        return f"evaluate (f) {variant_name(*k)}"
+    if kind == "sum-product" and store == "float32":
+        return "evaluate (b) sum-product waterfall"
+    if store == "bfloat16" and kind != "sum-product":
+        return f"evaluate (c) {kind}/bfloat16"
+    return f"evaluate (d) {kind}/{store}"
+
+
+def path_launches(kind, store, schedule="flooding", popcount=False) -> dict:
+    """A row's launches: on the path meant to drive it, and on every path
+    that ran it."""
+    k = key(kind, store, schedule, popcount)
+    path = driving_path(*k)
+    return {"path": path, "launches": PATH_LAUNCHES.get(path, {}).get(k, 0),
+            "launches_by_path": {p: c[k] for p, c in PATH_LAUNCHES.items()
+                                 if c.get(k)}}
+
+
 def run(dev: torch.device) -> dict:
+    PATH_LAUNCHES.clear()
     code = near_earth_code()
     smi = phase_card(dev) if dev.type == "cuda" else "cpu"
     if dev.type == "cuda":
@@ -704,10 +978,11 @@ def run(dev: torch.device) -> dict:
     phase_band(main["points"])
     phase_profile(dev, main["step"])
     variants = phase_variants(dev, gen)
-    ev = phase_evaluate(dev)
+    phase_evaluate(dev)
     phase_torch(dev, gen)
-    launches = collections.Counter(main["launches"])
-    launches.update(ev["launches"])
+    phase_new_paths(dev, code, gen, main)
+    new_variants = phase_new_variants(dev, gen)
+    phase_new_evaluate(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -717,7 +992,7 @@ def run(dev: torch.device) -> dict:
             "name": f"flooding[{kind},{store}]", "route": "cuda",
             "source": SOURCE, "replaces": TPU_CALL,
             "tpu_kernel": TPU_KERNEL[kind] + f", {store} store",
-            "launches": launches[(kind, store)],
+            **path_launches(kind, store),
             "max_abs_err": max(v["max_abs_err"],
                                kern["worst"]["max_abs_err"] if main_shape
                                else 0),
@@ -732,9 +1007,25 @@ def run(dev: torch.device) -> dict:
                       f"{PHASE1_ITERS} iterations, 3.4 dB") if main_shape
             else v["shape"],
         })
-    missing = [r["name"] for r in rows if r["launches"] == 0]
+    for (kind, store, sched, pc), v in new_variants.items():
+        parts = [TPU_KERNEL[kind]] + [TPU_NEW[x] for x, on in (
+            ("layered", sched == "layered"), ("int8", store == "int8"),
+            ("popcount", pc)) if on]
+        rows.append({
+            "name": variant_name(kind, store, sched, pc), "route": "cuda",
+            "source": SOURCE, "replaces": TPU_CALL,
+            "tpu_kernel": "; ".join(parts) + f", {store} store",
+            **path_launches(kind, store, sched, pc),
+            "max_abs_err": v["max_abs_err"],
+            "mismatched_words": v["mismatched"],
+            "words_checked": v["checked"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None, "smem_bytes": v["smem"], "shape": v["shape"],
+        })
+    missing = [(r["name"], r["path"]) for r in rows if r["launches"] == 0]
     if missing:
-        raise AssertionError(f"no launch on a path: {missing}")
+        raise AssertionError(f"no launch on the driving path: {missing}")
     kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main}

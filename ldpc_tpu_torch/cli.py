@@ -8,7 +8,8 @@ with the same arguments and defaults:
   probe      deterministic epsilon/bit-flip probe (ldpcCUDA.py:677)
 
 Engines: ``--engine torch`` is the counterpart of ``xla`` (plain torch
-ops), ``--engine cuda`` of ``pallas`` (the CUDA flooding kernel).
+ops), ``--engine cuda`` of ``pallas`` (the CUDA kernel: flooding or
+layered schedule, bfloat16, float32 or int8 state).
 Everything runs on the card; ``LDPC_TPU_PLATFORM=cpu`` runs it on the CPU
 instead (the kernel's plain PyTorch version stands in for it there), as it
 forces the CPU in the JAX CLI.
@@ -140,14 +141,17 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--engine", default="torch", choices=["torch", "cuda"])
     e.add_argument("--schedule", default="flooding",
                    choices=["flooding", "layered"],
-                   help="kernel message schedule: flooding (reference "
-                        "semantics); layered is not ported yet")
+                   help="cuda-engine message schedule: flooding "
+                        "(reference semantics) or layered (serial-C "
+                        "schedule, ~2x fewer sweeps; requires "
+                        "--engine cuda)")
     e.add_argument("--tile-b", type=int, default=None,
                    help="the JAX kernel's codeword tile; refused (the CUDA "
                         "kernel runs one word per block)")
     e.add_argument("--store-dtype", default=None,
                    choices=["bfloat16", "float32", "int8"],
-                   help="cuda engine state dtype (int8 is not ported yet)")
+                   help="cuda engine state dtype (int8 = Q4.3 "
+                        "fixed-point message memory)")
     e.add_argument("--sharded", action="store_true",
                    help="evaluate over every visible device (not ported "
                         "yet)")

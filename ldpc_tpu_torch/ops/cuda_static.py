@@ -1,29 +1,31 @@
-"""Flooding decode with compressed check state: the CUDA kernel, its plain
-PyTorch version, and the wrapper that chooses between them.
+"""Decode with compressed check state: the CUDA kernel, its plain PyTorch
+versions, and the wrapper that chooses between them.
 
-Port of ``ldpc_tpu.ops.pallas_static`` for the flooding schedule, every
-``kind`` ("min-sum", "normalized-min-sum", "offset-min-sum",
-"sum-product") and the float ``store_dtype``s (bfloat16, float32), with
-f32 arithmetic.  ``make_static_sweep_decoder(code, max_iters, ...)``
-returns ``decode_counts(llr[B, n]) -> (errors[B], iterations[B],
-success[B])``, the contract of the Pallas decoder: bit errors against the
-all-zero codeword, the first iteration whose syndrome is zero
-(``max_iters`` if none), and whether there was one.  The check runs BEFORE
-each update, so a word that does not converge reports the state after
-exactly ``max_iters`` updates.
+Port of ``ldpc_tpu.ops.pallas_static``: every ``kind`` ("min-sum",
+"normalized-min-sum", "offset-min-sum", "sum-product"), the ``store_dtype``s
+bfloat16, float32 and int8 (Q4.3 message memory, min-sum family), the
+``schedule``s "flooding" and "layered" (min-sum family) and
+``popcount_sign`` (the sign product folded from the sign bits), with f32
+arithmetic.  ``make_static_sweep_decoder(code, max_iters, ...)`` returns
+``decode_counts(llr[B, n]) -> (errors[B], iterations[B], success[B])``, the
+contract of the Pallas decoder: bit errors against the all-zero codeword,
+the first iteration (sweep) whose syndrome is zero (``max_iters`` if none),
+and whether there was one.  The check runs BEFORE each update, so a word
+that does not converge reports the state after exactly ``max_iters``
+updates.
 
 On a CUDA tensor the wrapper launches ``csrc/flooding.cu`` (one thread
 block per word; see the note at the head of that file) or raises.  On a CPU
-tensor it runs ``flooding_reference``, the same arithmetic written as
-batched tensor operations, with the same rounding points and the same f32
-summation orders.  The two agree word for word.  Against the Pallas kernel
-the min-sum family agrees word for word too; sum-product agrees in
-statistics, since XLA's and torch's CPU ``tanh``/``log`` differ in the last
-bits.
+tensor it runs ``flooding_reference`` or ``layered_reference``, the same
+arithmetic written as batched tensor operations, with the same rounding
+points and the same f32 summation orders.  The two agree word for word.
+Against the Pallas kernel the min-sum family agrees word for word too;
+sum-product agrees in statistics, since XLA's and torch's CPU
+``tanh``/``log`` differ in the last bits.
 
 ``launches`` counts kernel launches made through a wrapper, per
-``(kind, store)``; a run clears it and reads it to show which work went
-through the kernel.
+``(kind, store, schedule, popcount_sign)``; a run clears it and reads it to
+show which work went through the kernel.
 """
 
 from __future__ import annotations
@@ -38,12 +40,14 @@ from ..codes.qc import QCCode
 from ..utils.device import resolve_device
 from .plan import DecodePlan, frame_indices
 
-__all__ = ["KINDS", "STORES", "make_static_sweep_decoder",
-           "static_decode_counts", "flooding_reference", "kernel_tables",
-           "smem_bytes"]
+__all__ = ["KINDS", "STORES", "SCHEDULES", "make_static_sweep_decoder",
+           "static_decode_counts", "flooding_reference",
+           "layered_reference", "kernel_tables", "smem_bytes"]
 
 KINDS = ("min-sum", "normalized-min-sum", "offset-min-sum", "sum-product")
-STORES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+STORES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int8": torch.int8}
+SCHEDULES = ("flooding", "layered")
 
 launches: collections.Counter = collections.Counter()
 
@@ -51,20 +55,18 @@ _BIG = 3.0e38          # two-min fold start, as ops/pallas_static.py _BIG
 _LLR_CLIP = 1.0e30     # non-finite LLRs: NaN -> 0, +-inf -> +-1e30
 _PHI_MIN = 1e-9        # sum-product phi argument clip (pallas _PHI_MIN)
 _PHI_MAX = 38.0        # (pallas _PHI_MAX); phi(38) == 0 in f32
+_QUANT = 8.0           # int8 Q4.3: step 1/8 (pallas _QUANT_SCALE)
+_QMAX = 127.0          # symmetric int8 clip
 _MAX_SMEM = 232_448 - 1024   # per-block shared memory, less static + margin
 # The argmin plane stores a slot index as a number in the store type.
-_ARGMIN_LIMIT = {"bfloat16": 256, "float32": 1 << 24}
+_ARGMIN_LIMIT = {"bfloat16": 256, "float32": 1 << 24, "int8": 127}
 _SOURCE = "flooding"
 
 
 def _store_name(store_dtype) -> str:
-    """``"bfloat16"`` or ``"float32"`` for a torch dtype or its name; the
-    int8 message memory is a later slice's kernel variant."""
+    """``"bfloat16"``, ``"float32"`` or ``"int8"`` for a torch dtype or its
+    name."""
     name = str(store_dtype).removeprefix("torch.")
-    if name == "int8":
-        raise NotImplementedError(
-            "store_dtype int8 (Q4.3 message memory) is kernel B5 of "
-            "ROADMAP.md Queue B, not ported yet")
     if name not in STORES:
         raise ValueError(f"unsupported store_dtype: {store_dtype}")
     return name
@@ -78,6 +80,27 @@ def _check_kind(kind: str) -> None:
 def _sanitize(llr: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(llr, nan=0.0, posinf=_LLR_CLIP,
                             neginf=-_LLR_CLIP).clamp(-_LLR_CLIP, _LLR_CLIP)
+
+
+def _st(x: torch.Tensor, store: torch.dtype) -> torch.Tensor:
+    """Round f32 ``x`` into the store (pallas ``_st``): int8 holds
+    clip(round(x * 8), -127, 127), round half to even as ``jnp.round``."""
+    if store == torch.int8:
+        return torch.round(x * _QUANT).clamp(-_QMAX, _QMAX).to(torch.int8)
+    return x.to(store)
+
+
+def _ld(q: torch.Tensor) -> torch.Tensor:
+    """Widen a stored value to f32 (pallas ``_ld``): int8 loads q / 8."""
+    if q.dtype == torch.int8:
+        return q.float() * (1.0 / _QUANT)
+    return q.float()
+
+
+def _st_raw(x: torch.Tensor, store: torch.dtype) -> torch.Tensor:
+    """A small exact integer (the argmin plane), never scaled
+    (pallas ``_st_raw``)."""
+    return x.to(store)
 
 
 def _phi(x: torch.Tensor) -> torch.Tensor:
@@ -117,19 +140,23 @@ def kernel_tables(plan: DecodePlan) -> np.ndarray:
 
 
 def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
-               store: str = "bfloat16") -> int:
+               store: str = "bfloat16", schedule: str = "flooding",
+               popcount_sign: bool = False) -> int:
     """Dynamic shared memory of one block (as ``csrc/flooding.cu`` sizes
-    it): the tables and sign words (4 bytes each), then the state planes in
-    the store type."""
+    it): the tables and sign words (4 bytes each), the layered schedule's
+    row scratch (z x (sign words + 4) 32-bit words), then the state planes
+    in the store type (popcount_sign drops the sign-product plane)."""
     _check_kind(kind)
+    sw = _sign_words(plan)
     n_tab = (plan.block_rows * (2 + 2 * plan.dmax_cn) +
              plan.block_cols * (1 + 3 * plan.dmax_vn))
     if kind == "sum-product":
         planes = 2 * plan.m + _n_edges(plan) * plan.z + 2 * plan.n
     else:
-        planes = 4 * plan.m + 2 * plan.n
+        planes = (3 if popcount_sign else 4) * plan.m + 2 * plan.n
+    row = plan.z * (sw + 4) if schedule == "layered" else 0
     width = STORES[_store_name(store)].itemsize
-    return 4 * (n_tab + plan.m * _sign_words(plan)) + width * planes
+    return 4 * (n_tab + plan.m * sw + row) + width * planes
 
 
 class _RefTables:
@@ -140,6 +167,8 @@ class _RefTables:
         f = frame_indices(plan)
         as_t = lambda a, dt: torch.as_tensor(a, dtype=dt,  # noqa: E731
                                              device=device)
+        self.z = z
+        self.row_deg = [int(x) for x in plan.cn_valid.sum(axis=1)]
         self.var_idx = as_t(f["var_idx"], torch.int64)
         self.cn_valid = as_t(f["cn_valid"], torch.bool)
         self.chk_idx = as_t(f["chk_idx"], torch.int64)
@@ -179,6 +208,17 @@ def _pack_bits(neg: torch.Tensor, t: _RefTables) -> torch.Tensor:
     return (x.view(b, m, t.n_sw, 32) << t.bit_of_word).sum(-1)
 
 
+def _parity_sign(bits: torch.Tensor) -> torch.Tensor:
+    """+-1 from the parity of each check's sign words [..., n_sw]: the xor
+    of the words, folded (pallas ``_sign_from_bits``)."""
+    x = bits[..., 0]
+    for w in range(1, bits.shape[-1]):
+        x = x ^ bits[..., w]
+    for shift in (16, 8, 4, 2, 1):
+        x = x ^ (x >> shift)
+    return 1.0 - 2.0 * (x & 1).to(torch.float32)
+
+
 def _column_bits(bits: torch.Tensor, t: _RefTables) -> torch.Tensor:
     """Sign bit of every (variable, column slot) [b, n, dv]."""
     words = bits[:, t.chk_idx]                              # [b, n, dv, sw]
@@ -197,6 +237,16 @@ def _adjust(mag, kind, alpha, beta):
     return mag
 
 
+def _rebuild(m1, m2, am, sign, bits, t, kind, alpha, beta):
+    """The c2v message of every (check, slot) [b, r, dc] from a compressed
+    state in f32 (pallas ``_recon``): m1, m2, the argmin and the sign
+    product [b, r], the sign words [b, r, n_sw]."""
+    sgn = sign[..., None] * (1.0 - 2.0 * _slot_bits(bits, t))
+    mag = torch.where(am[..., None] == t.slot.float(), m2[..., None],
+                      m1[..., None])
+    return sgn * _adjust(mag, kind, alpha, beta)
+
+
 def _sum_in_order(acc, terms, valid):
     """acc + terms[..., 0] + terms[..., 1] + ... in slot order; invalid
     slots add -0.0, which leaves every value as it is."""
@@ -206,96 +256,205 @@ def _sum_in_order(acc, terms, valid):
     return acc
 
 
+class _MinSumState:
+    """The min-sum family's compressed check state of a batch of words, in
+    the store: m1, m2, the argmin (a raw slot index), the sign product
+    (absent with popcount_sign) and the packed sign words."""
+
+    def __init__(self, b, m, t, store, popcount, dev):
+        self.store, self.popcount = store, popcount
+        self.m1 = _st(torch.zeros(b, m, device=dev), store)
+        self.m2 = self.m1.clone()
+        self.am = _st_raw(torch.zeros(b, m, device=dev), store)
+        self.sp = None if popcount else _st(torch.ones(b, m, device=dev),
+                                            store)
+        self.bits = torch.zeros(b, m, t.n_sw, dtype=torch.int64, device=dev)
+
+    def sign(self, rows=slice(None)) -> torch.Tensor:
+        """The sign product of the checks ``rows`` [b, r], f32."""
+        if self.popcount:
+            return _parity_sign(self.bits[:, rows])
+        return _ld(self.sp[:, rows])
+
+    def messages(self, rows, t, kind, alpha, beta) -> torch.Tensor:
+        """The c2v message of every (check in ``rows``, slot) [b, r, dc]
+        rebuilt from the stored state."""
+        return _rebuild(_ld(self.m1[:, rows]), _ld(self.m2[:, rows]),
+                        self.am[:, rows].float(), self.sign(rows),
+                        self.bits[:, rows], t, kind, alpha, beta)
+
+    def write(self, rows, new) -> None:
+        n1, n2, amn, nsp, bits = new
+        self.m1[:, rows] = _st(n1, self.store)
+        self.m2[:, rows] = _st(n2, self.store)
+        self.am[:, rows] = _st_raw(amn, self.store)
+        if not self.popcount:
+            self.sp[:, rows] = _st(nsp, self.store)
+        self.bits[:, rows] = bits
+
+
+def _row_stats(v, valid, t, popcount):
+    """The new compressed state (f32, unrounded) from the v2c messages
+    ``v`` [b, r, dc] (pallas ``_row_stats``): two minima with multiplicity,
+    the argmin (first of equals), the sign product and the sign words."""
+    a = torch.where(valid, v.abs(), _BIG)
+    n1, amn = a.min(-1)
+    # second minimum with multiplicity: mask one argmin slot
+    n2 = a.scatter(-1, amn[..., None], float("inf")).min(-1).values
+    n2 = n2.clamp(max=_BIG)
+    neg = (v < 0) & valid
+    bits = _pack_bits(neg, t)
+    nsp = (_parity_sign(bits) if popcount
+           else (1 - 2 * (neg.sum(-1) % 2)).to(torch.float32))
+    return n1, n2, amn.to(torch.float32), nsp, bits
+
+
 def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
                      kind: str, store: torch.dtype, alpha: float,
-                     beta: float):
+                     beta: float, popcount: bool):
     f32 = torch.float32
     sum_product = kind == "sum-product"
     b, dev = llr.shape[0], llr.device
     m = t.var_idx.shape[0]
-    chan = _sanitize(llr).to(store)
-    tot = (-chan.float()).to(store)
-    sp = torch.ones(b, m, dtype=store, device=dev)
-    bits = torch.zeros(b, m, t.n_sw, dtype=torch.int64, device=dev)
+    chan = _st(_sanitize(llr), store)
+    tot = _st(-_ld(chan), store)
     if sum_product:
-        s_tot = torch.full((b, m), _PHI_MAX, dtype=store, device=dev)
-        stash = torch.zeros(b, t.n_stash, dtype=store, device=dev)
+        sp = _st(torch.ones(b, m, device=dev), store)
+        bits = torch.zeros(b, m, t.n_sw, dtype=torch.int64, device=dev)
+        s_tot = _st(torch.full((b, m), _PHI_MAX, device=dev), store)
+        stash = _st(torch.zeros(b, t.n_stash, device=dev), store)
     else:
-        m1 = torch.zeros(b, m, dtype=store, device=dev)
-        m2 = torch.zeros_like(m1)
-        am = torch.zeros_like(m1)
+        state = _MinSumState(b, m, t, store, popcount, dev)
     errors = torch.zeros(b, dtype=torch.int32, device=dev)
     iters = torch.full((b,), max_iters, dtype=torch.int32, device=dev)
     success = torch.zeros(b, dtype=torch.bool, device=dev)
-    slot, valid = t.slot, t.cn_valid
+    valid = t.cn_valid
     for it in range(max_iters + 1):
         # ---- phase A: syndrome + new check state, all checks at once ----
-        tt = tot.float()[:, t.var_idx]                      # [b, m, dc]
+        tt = _ld(tot)[:, t.var_idx]                         # [b, m, dc]
         par = ((tt < 0) & valid).sum(-1) % 2
         ok = par.sum(-1) == 0
-        sgn = sp.float()[..., None] * (1.0 - 2.0 * _slot_bits(bits, t))
         if sum_product:
-            phi_old = stash[:, t.stash_idx].float()
-            rest = (s_tot.float()[..., None] - phi_old).clamp(_PHI_MIN,
-                                                              _PHI_MAX)
+            sgn = _ld(sp)[..., None] * (1.0 - 2.0 * _slot_bits(bits, t))
+            phi_old = _ld(stash[:, t.stash_idx])
+            rest = (_ld(s_tot)[..., None] - phi_old).clamp(_PHI_MIN,
+                                                           _PHI_MAX)
             v = tt - sgn * _phi(rest)
             ph = _phi(v.abs().clamp(_PHI_MIN, _PHI_MAX))
-            stash = ph.reshape(b, -1)[:, t.stash_from_slot].to(store)
-            s_tot = _sum_in_order(torch.zeros(b, m, dtype=f32, device=dev),
-                                  ph, valid).to(store)
+            stash = _st(ph.reshape(b, -1)[:, t.stash_from_slot], store)
+            s_tot = _st(_sum_in_order(torch.zeros(b, m, dtype=f32,
+                                                  device=dev), ph, valid),
+                        store)
+            neg = (v < 0) & valid
+            bits = _pack_bits(neg, t)
+            sp = _st((1 - 2 * (neg.sum(-1) % 2)).to(f32), store)
         else:
-            mag = torch.where(am.float()[..., None] == slot.to(f32),
-                              m2.float()[..., None], m1.float()[..., None])
-            v = tt - sgn * _adjust(mag, kind, alpha, beta)
-            a = torch.where(valid, v.abs(), _BIG)
-            n1, amn = a.min(-1)
-            # second minimum with multiplicity: mask one argmin slot
-            n2 = a.scatter(-1, amn[..., None], float("inf")).min(-1).values
-            n2 = n2.clamp(max=_BIG)
-            m1, m2, am = n1.to(store), n2.to(store), amn.to(f32).to(store)
-        neg = (v < 0) & valid
-        bits = _pack_bits(neg, t)
-        sp = (1 - 2 * (neg.sum(-1) % 2)).to(store)
+            v = tt - state.messages(slice(None), t, kind, alpha, beta)
+            state.write(slice(None), _row_stats(v, valid, t, popcount))
         # ---- latches (pallas_static.py _latches) ----
         iters = iters.masked_fill(ok & ~success, it)
-        errs = (tot.float() < 0).sum(-1, dtype=torch.int32)
+        errs = (_ld(tot) < 0).sum(-1, dtype=torch.int32)
         errors = torch.where(success, errors, errs)
         success = success | ok
         if it == max_iters or bool(success.all()):
             break
         # ---- phase B: totals = -chan + sum over column slots, in order ----
         g = t.chk_idx                                       # [n, dv]
-        sgn = sp[:, g].float() * (1.0 - 2.0 * _column_bits(bits, t))
         if sum_product:
-            rest = (s_tot[:, g].float() -
-                    stash[:, t.chk_stash].float()).clamp(_PHI_MIN, _PHI_MAX)
+            sgn = _ld(sp)[:, g] * (1.0 - 2.0 * _column_bits(bits, t))
+            rest = (_ld(s_tot)[:, g] -
+                    _ld(stash[:, t.chk_stash])).clamp(_PHI_MIN, _PHI_MAX)
             msg = sgn * _phi(rest)
         else:
-            mag = torch.where(am[:, g].float() == t.chk_d.to(f32),
-                              m2[:, g].float(), m1[:, g].float())
+            sgn = state.sign()[:, g] * (
+                1.0 - 2.0 * _column_bits(state.bits, t))
+            mag = torch.where(state.am[:, g].float() == t.chk_d.to(f32),
+                              _ld(state.m2)[:, g], _ld(state.m1)[:, g])
             msg = sgn * _adjust(mag, kind, alpha, beta)
-        tot = _sum_in_order(-chan.float(), msg, t.vn_valid).to(store)
+        tot = _st(_sum_in_order(-_ld(chan), msg, t.vn_valid), store)
     return errors, iters, success
 
 
-def flooding_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
-                       *, kind: str = "min-sum", store_dtype="bfloat16",
-                       alpha: float = 0.75, beta: float = 0.15,
-                       chunk: int = 4096, tables: _RefTables | None = None):
-    """Plain PyTorch version of the kernel, on ``llr``'s device.
+def _layered_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
+                   kind: str, store: torch.dtype, alpha: float, beta: float,
+                   popcount: bool):
+    z = t.z
+    b, dev = llr.shape[0], llr.device
+    m = t.var_idx.shape[0]
+    chan = _st(_sanitize(llr), store)
+    tot = _st(-_ld(chan), store)
+    state = _MinSumState(b, m, t, store, popcount, dev)
+    errors = torch.zeros(b, dtype=torch.int32, device=dev)
+    iters = torch.full((b,), max_iters, dtype=torch.int32, device=dev)
+    success = torch.zeros(b, dtype=torch.bool, device=dev)
+    for it in range(max_iters + 1):
+        # ---- syndrome of the totals at the start of the sweep ----
+        tt = _ld(tot)[:, t.var_idx]
+        ok = (((tt < 0) & t.cn_valid).sum(-1) % 2).sum(-1) == 0
+        iters = iters.masked_fill(ok & ~success, it)
+        errs = (_ld(tot) < 0).sum(-1, dtype=torch.int32)
+        errors = torch.where(success, errors, errs)
+        success = success | ok
+        if it == max_iters or bool(success.all()):
+            break
+        # ---- block row by block row (pallas layered_body) ----
+        for mb, deg in enumerate(t.row_deg):
+            rows = slice(mb * z, (mb + 1) * z)
+            idx, valid = t.var_idx[rows], t.cn_valid[rows]
+            old = state.messages(rows, t, kind, alpha, beta)
+            new = _row_stats(_ld(tot)[:, idx] - old, valid, t, popcount)
+            # Pallas rebuilds the new messages from the unrounded fold
+            delta = _rebuild(*new, t, kind, alpha, beta) - old
+            # one indexed update per edge, in slot order, rounded each time:
+            # two edges of one block reach the same variables
+            for d in range(deg):
+                tot[:, idx[:, d]] = _st(_ld(tot[:, idx[:, d]]) +
+                                        delta[..., d], store)
+            state.write(rows, new)
+    return errors, iters, success
 
-    Decodes ``chunk`` words at a time (the gathered [chunk, m, dmax] state
-    is the memory peak) and stops a chunk once all its words converged."""
+
+def _reference(chunk_fn, llr, plan, max_iters, kind, store_dtype, alpha,
+               beta, popcount_sign, chunk, tables):
     _check_kind(kind)
     store = STORES[_store_name(store_dtype)]
     t = tables or _RefTables(plan, llr.device)
-    outs = [_reference_chunk(llr[lo:lo + chunk], t, max_iters, kind, store,
-                             float(alpha), float(beta))
+    popcount = bool(popcount_sign) and kind != "sum-product"
+    outs = [chunk_fn(llr[lo:lo + chunk], t, max_iters, kind, store,
+                     float(alpha), float(beta), popcount)
             for lo in range(0, llr.shape[0], chunk)]
     if not outs:
         e = torch.zeros(0, dtype=torch.int32, device=llr.device)
         return e, e.clone(), e.bool()
     return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def flooding_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
+                       *, kind: str = "min-sum", store_dtype="bfloat16",
+                       alpha: float = 0.75, beta: float = 0.15,
+                       popcount_sign: bool = False, chunk: int = 4096,
+                       tables: _RefTables | None = None):
+    """Plain PyTorch version of the flooding kernel, on ``llr``'s device.
+
+    Decodes ``chunk`` words at a time (the gathered [chunk, m, dmax] state
+    is the memory peak) and stops a chunk once all its words converged."""
+    return _reference(_reference_chunk, llr, plan, max_iters, kind,
+                      store_dtype, alpha, beta, popcount_sign, chunk, tables)
+
+
+def layered_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
+                      *, kind: str = "min-sum", store_dtype="bfloat16",
+                      alpha: float = 0.75, beta: float = 0.15,
+                      popcount_sign: bool = False, chunk: int = 4096,
+                      tables: _RefTables | None = None):
+    """Plain PyTorch version of the layered kernel (min-sum family), on
+    ``llr``'s device: a syndrome pass and the latches, then per block row
+    the new state from the current totals and each edge's delta added to
+    the totals, edge by edge in slot order."""
+    if kind == "sum-product":
+        raise ValueError("sum-product kernel supports flooding only")
+    return _reference(_layered_chunk, llr, plan, max_iters, kind,
+                      store_dtype, alpha, beta, popcount_sign, chunk, tables)
 
 
 _LIB: ctypes.CDLL | None = None
@@ -308,16 +467,16 @@ def _lib() -> ctypes.CDLL:
         from ..csrc import load
         lib = load(_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flooding_launch.argtypes = [i, i, p, i, i, i, i, i, i, i, i, i,
-                                        p, i, f, f, p, p, p, p]
+        lib.flooding_launch.argtypes = [i, i, i, i, p, i, i, i, i, i, i, i,
+                                        i, i, p, i, f, f, p, p, p, p]
         lib.flooding_launch.restype = i
         _LIB = lib
     return _LIB
 
 
 def _launch(llr: torch.Tensor, plan: DecodePlan, tables: torch.Tensor,
-            max_iters: int, kind: str, store: str, alpha: float,
-            beta: float):
+            max_iters: int, kind: str, store: str, schedule: str,
+            popcount: bool, alpha: float, beta: float):
     lib = _lib()
     b = llr.shape[0]
     out = [torch.empty(b, dtype=torch.int32, device=llr.device)
@@ -326,16 +485,18 @@ def _launch(llr: torch.Tensor, plan: DecodePlan, tables: torch.Tensor,
         with torch.cuda.device(llr.device):
             stream = torch.cuda.current_stream(llr.device).cuda_stream
             rc = lib.flooding_launch(
-                KINDS.index(kind), list(STORES).index(store), llr.data_ptr(),
+                KINDS.index(kind), list(STORES).index(store),
+                SCHEDULES.index(schedule), int(popcount), llr.data_ptr(),
                 b, plan.n, plan.m, plan.z, plan.block_rows, plan.block_cols,
                 plan.dmax_cn, plan.dmax_vn, _n_edges(plan),
                 tables.data_ptr(), max_iters, alpha, beta,
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 stream)
         if rc != 0:
-            raise RuntimeError(f"{_SOURCE} launch ({kind}, {store}) failed: "
-                               f"CUDA error {rc}")
-        launches[(kind, store)] += 1
+            raise RuntimeError(
+                f"{_SOURCE} launch ({kind}, {store}, {schedule}, popcount "
+                f"{popcount}) failed: CUDA error {rc}")
+        launches[(kind, store, schedule, popcount)] += 1
     return out[0], out[1], out[2].bool()
 
 
@@ -350,23 +511,26 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
     success)`` for ``code`` on ``device`` (default: the card).
 
     The decoder takes contiguous float32 LLRs on its own device (positive
-    means bit 1).  The min-sum family is scale-invariant, so raw BPSK
-    samples will do; sum-product needs true LLRs (2y/sigma^2).  ``alpha``
-    scales normalized min-sum and ``beta`` offsets offset min-sum, as in
-    the JAX package.  On CUDA it launches the kernel; on the CPU it runs
-    the plain version."""
-    _check_kind(kind)
-    store = _store_name(store_dtype)
-    if schedule == "layered":
-        raise NotImplementedError(
-            "schedule='layered' is kernel B3 of ROADMAP.md Queue B, not "
-            "ported yet")
-    if schedule != "flooding":
+    means bit 1).  The min-sum family is scale-invariant in the float
+    stores, so raw BPSK samples will do; int8 quantizes its input, and the
+    JAX package feeds it raw samples too; sum-product needs true LLRs
+    (2y/sigma^2).  ``alpha`` scales normalized min-sum and ``beta`` offsets
+    offset min-sum, as in the JAX package.  ``schedule="layered"`` (min-sum
+    family) counts sweeps; ``popcount_sign`` folds the sign product from
+    the sign bits (min-sum family; sum-product ignores it), with the same
+    trajectories.  On CUDA it launches the kernel; on the CPU it runs the
+    plain version."""
+    if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule: {schedule}")
-    if popcount_sign:
-        raise NotImplementedError(
-            "popcount_sign is kernel B6 of ROADMAP.md Queue B, not ported "
-            "yet")
+    _check_kind(kind)
+    if kind == "sum-product" and schedule != "flooding":
+        raise ValueError("sum-product kernel supports flooding only")
+    store = _store_name(store_dtype)
+    if kind == "sum-product" and store == "int8":
+        raise ValueError("integer message memory supports the min-sum "
+                         "family only (phi spans ~[1e-17, 21]; Q4.3 "
+                         "saturation would destroy it)")
+    popcount = bool(popcount_sign) and kind != "sum-product"
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -382,14 +546,16 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
     alpha = float(alpha) if kind == "normalized-min-sum" else 0.0
     beta = float(beta) if kind == "offset-min-sum" else 0.0
     if dev.type == "cuda":
-        if smem_bytes(plan, kind, store) > _MAX_SMEM:
+        smem = smem_bytes(plan, kind, store, schedule, popcount)
+        if smem > _MAX_SMEM:
             raise NotImplementedError(
-                f"one word's {kind} state in {store} "
-                f"({smem_bytes(plan, kind, store)} bytes) exceeds a block's "
-                "shared memory")
+                f"one word's {kind} {schedule} state in {store} ({smem} "
+                "bytes) exceeds a block's shared memory")
         tables = torch.as_tensor(kernel_tables(plan), device=dev)
     else:
         ref_tables = _RefTables(plan, dev)
+    reference = (layered_reference if schedule == "layered"
+                 else flooding_reference)
 
     def decode_counts(llr: torch.Tensor):
         if llr.device != dev:
@@ -402,11 +568,11 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
         if dev.type == "cpu":
-            return flooding_reference(llr, plan, max_iters, kind=kind,
-                                      store_dtype=store, alpha=alpha,
-                                      beta=beta, tables=ref_tables)
-        return _launch(llr, plan, tables, max_iters, kind, store, alpha,
-                       beta)
+            return reference(llr, plan, max_iters, kind=kind,
+                             store_dtype=store, alpha=alpha, beta=beta,
+                             popcount_sign=popcount, tables=ref_tables)
+        return _launch(llr, plan, tables, max_iters, kind, store, schedule,
+                       popcount, alpha, beta)
 
     decode_counts.plan = plan
     return decode_counts

@@ -92,10 +92,13 @@ def epsilon_probe(n: int, flips=(0,), epsilon: float = 0.0, *,
                   device=None) -> torch.Tensor:
     """Deterministic probe [1, n]: the modulated all-zero word plus
     ``epsilon``, with the bits at ``flips`` sign-flipped (ldpc.py:417-418,
-    ldpcCUDA.py:677-828)."""
+    ldpcCUDA.py:677-828).  As JAX's ``.at[flips].multiply(-1.0)``: an index
+    in [-n, 0) counts from the end, one outside [-n, n) is dropped, and a
+    bit listed twice is flipped twice."""
     v = torch.full((n,), -1.0, dtype=torch.float32,
                    device=resolve_device(device)) + epsilon
     idx = torch.as_tensor(list(flips), dtype=torch.int64, device=v.device)
-    # a bit listed twice is flipped twice, as by JAX's .at[].multiply
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = idx[(idx >= 0) & (idx < n)]
     odd = torch.bincount(idx, minlength=n) % 2 == 1
     return torch.where(odd, -v, v)[None, :]

@@ -4,8 +4,9 @@ Two decode engines, named after what they replace:
 
 * ``"torch"``, the counterpart of the JAX package's ``"xla"`` engine: the
   plain-torch flooding decoder of ``ops/decoder.py`` (compute ``dtype``);
-* ``"cuda"``, the counterpart of ``"pallas"``: the CUDA flooding kernel of
-  ``ops/cuda_static.py`` (state in ``store_dtype``, default bfloat16).
+* ``"cuda"``, the counterpart of ``"pallas"``: the CUDA kernel of
+  ``ops/cuda_static.py`` (state in ``store_dtype``, default bfloat16; the
+  ``schedule`` "flooding" or "layered"; ``popcount_sign``).
 
 A staged decode runs a batch with a small iteration budget first; the words
 that did not converge are decoded again from scratch with the full budget.
@@ -56,18 +57,30 @@ __all__ = ["ENGINES", "batch_seed", "default_redo_capacity",
 ENGINES = ("torch", "cuda")
 
 
-def default_redo_capacity(b: int) -> int:
-    """max(128, 3B/16) rounded up to a multiple of 128, at most B — the
-    capacity of the JAX bench's cascade (bench.py, 128-word tiles)."""
-    c = max(128, 3 * b // 16)
-    return min(-(-c // 128) * 128, b)
+def default_redo_capacity(b: int, engine: str = "cuda") -> int:
+    """The JAX cascade's default redo capacity for a batch of ``b`` words
+    (its ``round_cap``): B/4, at least 1; the cuda engine rounds it up to
+    the 128-word tile the Pallas engine's branches were tuned on (at least
+    128); at most B.  The bench protocol passes 3B/16 explicitly."""
+    c = max(1, b // 4)
+    if engine == "cuda":
+        c = max(128, -(-c // 128) * 128)
+    return min(c, b)
 
 
-def _refuse_later_options(*, engine, store_dtype, tile_b, sort_words,
-                          dep_stride, popcount_sign):
-    """Options of the JAX package that this port does not carry (yet)."""
+def _refuse_later_options(*, engine, store_dtype, schedule, tile_b,
+                          sort_words, dep_stride, popcount_sign):
+    """Options that the engine does not take, with the JAX package's
+    exception types, and those this port does not carry (yet)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown decode engine: {engine}")
+    if schedule != "flooding" and engine != "cuda":
+        raise ValueError("schedules other than flooding need the cuda "
+                         "engine")
+    if engine != "cuda" and (dep_stride is not None
+                             or popcount_sign is not None):
+        raise ValueError("dep_stride/popcount_sign are cuda-kernel "
+                         "scheduling levers")
     if tile_b is not None:
         raise ValueError("tile_b is a pallas-engine scheduling lever; the "
                          "port's engines run one word per block")
@@ -77,10 +90,7 @@ def _refuse_later_options(*, engine, store_dtype, tile_b, sort_words,
             "sim/evaluate.py)")
     if dep_stride:
         raise NotImplementedError(
-            "dep_stride is kernel B8 of ROADMAP.md Queue B, not ported yet")
-    if popcount_sign:
-        raise NotImplementedError(
-            "popcount_sign is kernel B6 of ROADMAP.md Queue B, not ported "
+            "dep_stride > 0 is kernel B8 of ROADMAP.md Queue B, not ported "
             "yet")
     if engine == "torch" and store_dtype is not None:
         raise ValueError("store_dtype is a cuda-engine option (the torch "
@@ -88,13 +98,10 @@ def _refuse_later_options(*, engine, store_dtype, tile_b, sort_words,
 
 
 def _engine_counts_fn(code: QCCode, max_iters: int, *, kind: str, dtype,
-                      engine: str, store_dtype, schedule: str, device):
+                      engine: str, store_dtype, schedule: str,
+                      popcount_sign, device):
     """``fn(llr[B, n]) -> (errors, iterations, success)`` of one engine."""
     if engine == "torch":
-        if schedule != "flooding":
-            raise NotImplementedError(
-                f"schedule={schedule!r} needs the cuda engine's kernel B3 "
-                "(ROADMAP.md Queue B)")
         dec = decoder_for_code(code, max_iters, kind=kind, dtype=dtype)
 
         def fn(llr):
@@ -106,7 +113,7 @@ def _engine_counts_fn(code: QCCode, max_iters: int, *, kind: str, dtype,
     return make_static_sweep_decoder(
         code, max_iters, kind=kind,
         store_dtype="bfloat16" if store_dtype is None else store_dtype,
-        schedule=schedule, device=device)
+        schedule=schedule, popcount_sign=popcount_sign, device=device)
 
 
 class StagedDecoder:
@@ -125,8 +132,8 @@ class StagedDecoder:
                  sort_words: bool = False, dep_stride: int | None = None,
                  popcount_sign: bool | None = None, device=None):
         _refuse_later_options(engine=engine, store_dtype=store_dtype,
-                              tile_b=tile_b, sort_words=sort_words,
-                              dep_stride=dep_stride,
+                              schedule=schedule, tile_b=tile_b,
+                              sort_words=sort_words, dep_stride=dep_stride,
                               popcount_sign=popcount_sign)
         phases = ([int(phase1_iters)] if isinstance(phase1_iters, int)
                   else [int(p) for p in phase1_iters])
@@ -140,18 +147,21 @@ class StagedDecoder:
             raise ValueError("redo_capacity needs one entry per re-decode "
                              "stage")
         self.caps = caps
+        self.engine = engine
         self.device = resolve_device(device)
         self.decoders = [_engine_counts_fn(
             code, it, kind=kind, dtype=dtype, engine=engine,
-            store_dtype=store_dtype, schedule=schedule, device=self.device)
+            store_dtype=store_dtype, schedule=schedule,
+            popcount_sign=popcount_sign, device=self.device)
             for it in phases + [max_iters]]
         self.last_branches: list[str] = []
 
     def capacities(self, b: int) -> list[int]:
         """Each stage's redo capacity for a batch of ``b`` words: an explicit
-        value as given (at most B), else ``default_redo_capacity(b)``."""
-        return [default_redo_capacity(b) if c is None else min(int(c), b)
-                for c in self.caps]
+        value as given (at most B), else (None or 0, as in the JAX package)
+        ``default_redo_capacity(b, engine)``."""
+        return [min(int(c), b) if c else
+                default_redo_capacity(b, self.engine) for c in self.caps]
 
     def __call__(self, llr: torch.Tensor):
         errors, iters, success = self.decoders[0](llr)
@@ -291,6 +301,7 @@ def evaluate_code(code: QCCode,
                   schedule: str = "flooding",
                   tile_b: int | None = None,
                   sort_words: bool = False,
+                  popcount_sign: bool | None = None,
                   codewords: str = "zero",
                   early_abort_ber: float | None = None,
                   stats: BerStatistics | None = None,
@@ -305,7 +316,8 @@ def evaluate_code(code: QCCode,
     ``staged=True`` decodes each batch in phases (``phase1_iters`` ->
     ``max_iters``), with the same statistics as a straight decode.
     ``engine`` is "torch" (the XLA engine's counterpart) or "cuda" (the
-    kernel; ``store_dtype`` bfloat16 or float32).
+    kernel; ``store_dtype`` bfloat16, float32 or int8, ``schedule``
+    "flooding" or "layered", ``popcount_sign``).
 
     ``codewords``: "zero" (the reference's all-zero Monte-Carlo path,
     ldpc.py:409-411); "random" waits for the port of ``codes/encode.py``.
@@ -326,7 +338,8 @@ def evaluate_code(code: QCCode,
         code, max_iters, scale_llr=scale_llr, device=dev,
         phase1_iters=phase1_iters if staged else [], kind=kind,
         dtype=dtype, engine=engine, store_dtype=store_dtype,
-        schedule=schedule, tile_b=tile_b, sort_words=sort_words)
+        schedule=schedule, tile_b=tile_b, sort_words=sort_words,
+        popcount_sign=popcount_sign)
     if stats is None:
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             stats = BerStatistics.load(checkpoint_path)

@@ -127,3 +127,26 @@ def test_statistics_equal_jax():
         assert stats.wilson_interval(k, n) == jstats.wilson_interval(k, n)
     np.testing.assert_array_equal(stats.snr_db_actual([0.5, 0.3]),
                                   jstats.snr_db_actual([0.5, 0.3]))
+
+
+@pytest.mark.parametrize("flips", [(-1,), (0, -1), (9,), (3, 3), (-8,),
+                                   (-9,), (8, -1, 2)])
+def test_epsilon_probe_flip_indices_equal_jax(flips):
+    """As JAX's .at[flips].multiply(-1.0), n = 8: an index in [-8, 0)
+    counts from the end, one outside [-8, 8) is dropped, a bit listed twice
+    is flipped twice."""
+    got = ch.epsilon_probe(8, flips=flips, epsilon=0.01, device="cpu")
+    want = np.asarray(jch.epsilon_probe(8, flips=flips, epsilon=0.01))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_epsilon_probe_without_flips():
+    """No flip: JAX given an empty integer index flips nothing.  (Given
+    the tuple () itself, JAX builds a float32 indexer and raises
+    TypeError; the port reads () as no flip.)"""
+    got = ch.epsilon_probe(8, flips=(), epsilon=0.01, device="cpu")
+    want = np.asarray(jch.epsilon_probe(8, flips=np.zeros(0, np.int32),
+                                        epsilon=0.01))
+    assert np.array_equal(got.numpy(), want)
+    with pytest.raises(TypeError):
+        jch.epsilon_probe(8, flips=(), epsilon=0.01)

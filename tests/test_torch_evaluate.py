@@ -132,8 +132,9 @@ def test_early_abort_stops_the_sweep():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(schedule="layered", engine="cuda"), NotImplementedError, "B3"),
-    (dict(store_dtype="int8", engine="cuda"), NotImplementedError, "B5"),
+    (dict(schedule="layered"), ValueError, "cuda engine"),
+    (dict(store_dtype="int8", engine="cuda", kind="sum-product"),
+     ValueError, "min-sum family"),
     (dict(sort_words=True), NotImplementedError, "sort_words"),
     (dict(codewords="random"), NotImplementedError, "encode"),
     (dict(codewords="other"), ValueError, "codewords"),
@@ -147,13 +148,49 @@ def test_later_options_raise(kw, err, match):
 
 
 def test_staged_decoder_refuses_kernel_levers():
+    """The kernel levers belong to the cuda engine (ValueError on the torch
+    engine, as on JAX's xla); there popcount_sign and dep_stride 0 are
+    taken, and dep_stride > 0 (kernel B8) is the one refusal left."""
     code = wifi_code()
-    with pytest.raises(NotImplementedError, match="B6"):
-        make_staged_decoder_device(code, 8, engine="cuda",
-                                   popcount_sign=True, device="cpu")
+    with pytest.raises(ValueError, match="levers"):
+        make_staged_decoder_device(code, 8, popcount_sign=True,
+                                   device="cpu")
     with pytest.raises(NotImplementedError, match="B8"):
         make_staged_decoder_device(code, 8, engine="cuda", dep_stride=2,
                                    device="cpu")
+    for kw in (dict(popcount_sign=True), dict(dep_stride=0)):
+        make_staged_decoder_device(code, 8, phase1_iters=3, engine="cuda",
+                                   device="cpu", **kw)
+
+
+@pytest.mark.parametrize("popcount_sign", [None, False, True])
+@pytest.mark.parametrize("dep_stride", [None, 0, 2])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+def test_engine_options_raise_as_jax(engine, schedule, dep_stride,
+                                     popcount_sign):
+    """Every combination raises what JAX's make_staged_decoder_device
+    raises on its counterpart engine (xla, pallas), and builds where it
+    builds, except dep_stride > 0 on the cuda engine: kernel B8, not
+    ported, NotImplementedError."""
+    kw = dict(phase1_iters=3, schedule=schedule, dep_stride=dep_stride,
+              popcount_sign=popcount_sign)
+    want = None
+    try:
+        jax_staged_decoder(jax_wifi_code(), 8,
+                           engine={"torch": "xla", "cuda": "pallas"}[engine],
+                           **kw)
+    except Exception as e:  # noqa: BLE001 — the type is what is compared
+        want = type(e)
+    if want is None and dep_stride:
+        want = NotImplementedError
+    if want is None:
+        make_staged_decoder_device(wifi_code(), 8, engine=engine,
+                                   device="cpu", **kw)
+    else:
+        with pytest.raises(want):
+            make_staged_decoder_device(wifi_code(), 8, engine=engine,
+                                       device="cpu", **kw)
 
 
 def test_sweep_step_contract_and_generator():
@@ -253,12 +290,32 @@ def test_cli_bench_and_probe_on_the_cpu(cpu_platform, capsys):
     (["evaluate", "--plot", "x.png"], NotImplementedError),
     (["evaluate", "--tile-b", "128"], SystemExit),
     (["evaluate", "--codewords", "random"], NotImplementedError),
-    (["evaluate", "--schedule", "layered", "--engine", "cuda"],
-     NotImplementedError),
+    (["evaluate", "--schedule", "layered"], ValueError),
 ])
 def test_cli_refuses_later_options(cpu_platform, argv, err):
     with pytest.raises(err):
         cli.main(argv + ["--transmissions", "4", "--iterations", "4"])
+
+
+def test_cli_evaluate_layered_int8_on_the_cpu(cpu_platform, capsys):
+    st = cli.main(["evaluate", "--code", "wifi", "--snr", "3.0",
+                   "--transmissions", "8", "--batch-size", "4",
+                   "--iterations", "10", "--phase-iters", "4",
+                   "--engine", "cuda", "--schedule", "layered",
+                   "--store-dtype", "int8"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert set(json.loads(line)) == KEYS
+    assert st.summary()["transmissions"] == 8
+
+
+def test_cli_probe_negative_flip_equals_jax(cpu_platform):
+    """`probe --flips -1` flips the last bit, as ldpc_tpu.cli does."""
+    got = cli.main(["probe", "--code", "wifi", "--flips", "-1",
+                    "--iterations", "10"])
+    want = jax_epsilon_probe(jax_wifi_code(), 1e-2, (-1,), 10)
+    assert (got["errors_uncoded"], got["errors_decoded"], got["iterations"],
+            got["success"]) == tuple(want)
+    assert got["errors_uncoded"] == 1
 
 
 def test_cli_needs_the_card_unless_asked(monkeypatch):

@@ -1,5 +1,5 @@
-"""The CUDA kernel, each (kind, store) variant, against its plain PyTorch
-version, on the card.
+"""The CUDA kernel, each (kind, store, schedule, popcount_sign) variant,
+against its plain PyTorch version, on the card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
 without one.  This file imports no JAX, so it also runs on the machine with
@@ -16,6 +16,7 @@ from ldpc_tpu_torch.codes import QCCode, near_earth_code, wifi_code
 from ldpc_tpu_torch.ops import cuda_static
 from ldpc_tpu_torch.ops.cuda_static import (KINDS, STORES,
                                             flooding_reference,
+                                            layered_reference,
                                             make_static_sweep_decoder)
 from ldpc_tpu_torch.ops.plan import DecodePlan
 from ldpc_tpu_torch.sim.evaluate import make_staged_decoder_device
@@ -65,7 +66,13 @@ def _high_degree_code():
 CODES = [near_earth_code(), _random_code(7, 21, 2, 6),
          _random_code(8, 13, 3, 7), wifi_code(1944, 1 / 2),
          wifi_code(1944, 5 / 6), _high_degree_code()]
-VARIANTS = [(k, s) for k in KINDS for s in STORES]
+VARIANTS = [(k, s) for k in KINDS for s in ("bfloat16", "float32")]
+# the variants of kernels B3, B5 and B6: the min-sum family in every store,
+# schedule and sign mode, less the flooding float-store pairs above
+MINSUM = KINDS[:3]
+NEW_VARIANTS = [(k, s, sched, pc) for k in MINSUM for s in STORES
+                for sched in ("flooding", "layered") for pc in (False, True)
+                if (sched, pc) != ("flooding", False) or s == "int8"]
 
 
 @pytest.mark.parametrize("kind,store", VARIANTS)
@@ -78,15 +85,65 @@ def test_kernel_matches_plain_version(cuda, code, kind, store):
         llr = llr * 4.0
     dec = make_static_sweep_decoder(code, 20, kind=kind, store_dtype=store,
                                     device=cuda)
-    before = cuda_static.launches[(kind, store)]
+    key = (kind, store, "flooding", False)
+    before = cuda_static.launches[key]
     got = dec(llr)
-    assert cuda_static.launches[(kind, store)] == before + 1
+    assert cuda_static.launches[key] == before + 1
     want = flooding_reference(llr, DecodePlan.from_code(code), 20,
                               kind=kind, store_dtype=store)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind,store,schedule,popcount", NEW_VARIANTS)
+@pytest.mark.parametrize("code", CODES, ids=lambda c: c.name)
+def test_new_variant_matches_plain_version(cuda, code, kind, store,
+                                           schedule, popcount):
+    """Layered schedule, int8 state and popcount sign: every word agrees
+    with the plain version, converged or not."""
+    llr = _llr(code.n, (1.0, 2.5, 3.0, 3.4, 4.0), 64, seed=4, device=cuda)
+    dec = make_static_sweep_decoder(code, 20, kind=kind, store_dtype=store,
+                                    schedule=schedule, popcount_sign=popcount,
+                                    device=cuda)
+    key = (kind, store, schedule, popcount)
+    before = cuda_static.launches[key]
+    got = dec(llr)
+    assert cuda_static.launches[key] == before + 1
+    ref = layered_reference if schedule == "layered" else flooding_reference
+    want = ref(llr, DecodePlan.from_code(code), 20, kind=kind,
+               store_dtype=store, popcount_sign=popcount)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("store", list(STORES))
+def test_popcount_sign_is_bit_identical_on_card(cuda, schedule, store):
+    code = near_earth_code()
+    llr = _llr(code.n, (2.8, 3.0, 3.2, 3.4), 128, seed=6, device=cuda)
+    a, b = (make_static_sweep_decoder(code, 50, store_dtype=store,
+                                      schedule=schedule, popcount_sign=pc,
+                                      device=cuda)(llr)
+            for pc in (False, True))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kw", [dict(schedule="layered"),
+                                dict(store_dtype="int8"),
+                                dict(popcount_sign=True)])
+def test_staged_new_variants_equal_single_pass_on_card(cuda, kw):
+    code = near_earth_code()
+    llr = _llr(code.n, (3.0, 3.4), 256, seed=7, device=cuda)
+    single = make_static_sweep_decoder(code, 50, device=cuda, **kw)(llr)
+    staged = make_staged_decoder_device(code, 50, phase1_iters=6,
+                                        redo_capacity=96, engine="cuda",
+                                        device=cuda, **kw)
+    for a, b in zip(staged(llr), single):
+        assert torch.equal(a, b)
 
 
 def test_staged_equals_single_pass_on_card(cuda):

@@ -1,5 +1,5 @@
 """The port stands alone: no ``jax`` and nothing of ``ldpc_tpu`` in
-``ldpc_tpu_torch/`` or ``chip_smoke.py`` (the machine with the card has no
+``ldpc_tpu_torch/``, ``chip_smoke.py`` or ``kernel_ab.py`` (the machine with the card has no
 JAX), and its entry points refuse to run quietly on the CPU."""
 
 import ast
@@ -36,7 +36,8 @@ FORBIDDEN = ("jax", "ldpc_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "kernel_ab.py"]
 
 
 def _forbidden(name):

@@ -22,6 +22,7 @@ from ldpc_tpu_torch.ops.cuda_static import (flooding_reference,
                                             make_static_sweep_decoder,
                                             smem_bytes)
 from ldpc_tpu_torch.ops.plan import DecodePlan
+from ldpc_tpu_torch.sim.evaluate import make_staged_decoder_device
 
 # xdist runs several workers on the machine's cores: one intra-op
 # thread each, or their thread pools contend and the CPU tests crawl
@@ -126,13 +127,24 @@ def test_variant_parameters_reach_the_rebuild(kind):
 
 
 def test_wrapper_refuses_later_variants():
+    """What the port still refuses: kernel B8 (dep_stride > 0, which the
+    cuda engine's cascade refuses before it builds the wrapper), and what
+    the JAX kernel refuses too (sum-product with int8 state or the layered
+    schedule, unknown kinds and stores).  Layered, int8 and popcount_sign
+    build."""
     code = wifi_code(1944, 1 / 2)
-    with pytest.raises(NotImplementedError, match="B5"):
-        make_static_sweep_decoder(code, 4, store_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="B3"):
-        make_static_sweep_decoder(code, 4, schedule="layered", device="cpu")
-    with pytest.raises(NotImplementedError, match="B6"):
-        make_static_sweep_decoder(code, 4, popcount_sign=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="B8"):
+        make_staged_decoder_device(code, 4, engine="cuda", dep_stride=2,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="min-sum family"):
+        make_static_sweep_decoder(code, 4, kind="sum-product",
+                                  store_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="flooding only"):
+        make_static_sweep_decoder(code, 4, kind="sum-product",
+                                  schedule="layered", device="cpu")
+    for kw in (dict(store_dtype="int8"), dict(schedule="layered"),
+               dict(popcount_sign=True)):
+        make_static_sweep_decoder(code, 4, device="cpu", **kw)
     with pytest.raises(ValueError):
         make_static_sweep_decoder(code, 4, kind="max-product", device="cpu")
     with pytest.raises(ValueError):

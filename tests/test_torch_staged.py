@@ -8,6 +8,7 @@ batch of 8 words then reaches both branches of the cascade (3 -> 8
 iterations): "many" at 2.5 and 3.6 dB, "few" at 4.2 dB.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,13 +77,41 @@ def test_cascade_equals_single_pass(snr):
         assert np.array_equal(a, b.numpy())
 
 
-def test_default_redo_capacity():
-    """max(128, 3B/16) rounded up to 128-word tiles, at most B: the
-    capacity the JAX bench gives its pallas cascade."""
-    assert default_redo_capacity(32768) == 6144
-    assert default_redo_capacity(1000) == 256
-    assert default_redo_capacity(8) == 8
-    assert default_redo_capacity(200) == 128
+def _no_decode(code, it, kind, dtype, engine, kw_key, nested=False):
+    """Stands in for the JAX cascade's decoders: only its capacities are
+    read, from the traced program."""
+    def fn(llr):
+        zero = jnp.zeros(llr.shape[0], jnp.int32)
+        return zero, zero, zero.astype(bool)
+    return fn
+
+
+def test_default_redo_capacity(monkeypatch):
+    """The JAX cascade's default capacity (round_cap,
+    ldpc_tpu/sim/evaluate.py:275-280), read from the `nfail <= cap` of its
+    traced program: B/4 for xla; rounded up to 128-word tiles, at least
+    128, for pallas; at most B; None and 0 alike.  The port's torch and
+    cuda engines give the same; the bench protocol passes 3B/16."""
+    import ldpc_tpu.sim.evaluate as jev
+    monkeypatch.setattr(jev, "_engine_counts_fn", _no_decode)
+    code, jcode = near_earth_code(), jax_near_earth()
+    for engine, jengine in (("torch", "xla"), ("cuda", "pallas")):
+        for cap in (None, 0):
+            port = make_staged_decoder_device(code, 8, phase1_iters=3,
+                                              redo_capacity=cap,
+                                              engine=engine, device="cpu")
+            for b in (8, 100, 128, 1000, 32768):
+                fn = jev._staged_core_builder(jcode, 8, phase1_iters=3,
+                                              redo_capacity=cap,
+                                              engine=jengine)(b)
+                jaxpr = jax.make_jaxpr(fn)(
+                    jax.ShapeDtypeStruct((b, jcode.n), jnp.float32))
+                want = [int(e.invars[1].val) for e in jaxpr.jaxpr.eqns
+                        if e.primitive.name == "le"]
+                assert port.capacities(b) == want, (engine, cap, b)
+                assert default_redo_capacity(b, engine) == want[0]
+    assert default_redo_capacity(32768) == 8192
+    assert default_redo_capacity(1000, "torch") == 250
 
 
 def test_staged_rejects_bad_budgets():
