@@ -7,7 +7,7 @@ Phases, each printing its elapsed seconds; any failure exits non-zero with
 no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's view.
-2. build   nvcc builds ldpc_tpu_torch/csrc/flooding.cu (ptxas report).
+2. build   nvcc builds ldpc_tpu_torch/csrc/decode.cu (ptxas report).
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -197,7 +197,7 @@ OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
 OPS_LAYERED = {"min-sum": (1, 8 + 6), "normalized-min-sum": (1, 9 + 8),
                "offset-min-sum": (1, 10 + 10)}
 
-SOURCE = "ldpc_tpu_torch/csrc/flooding.cu"
+SOURCE = "ldpc_tpu_torch/csrc/decode.cu"
 TPU_CALL = "ldpc_tpu/ops/pallas_static.py:621"
 TPU_NEW = {"layered": "B3 ldpc_tpu/ops/pallas_static.py:566-599 layered_body",
            "int8": "B5 ldpc_tpu/ops/pallas_static.py:195-223 _st/_ld/_st_raw",
@@ -344,9 +344,9 @@ def phase_card(dev) -> str:
 
 def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
-    build("flooding")
-    rep = build_report("flooding")
-    log("build", f"flooding.cu built in {rep['seconds']:.1f} s "
+    build("decode")
+    rep = build_report("decode")
+    log("build", f"decode.cu built in {rep['seconds']:.1f} s "
         f"(cached: {rep['cached']})")
     ptxas = rep["ptxas"]
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]

@@ -78,8 +78,8 @@ def child(root: str) -> dict:
     from ldpc_tpu_torch.sim.evaluate import transmit
 
     dev = torch.device("cuda", 0)
-    build("flooding")
-    rep = build_report("flooding")
+    build("decode")
+    rep = build_report("decode")
     code = near_earth_code()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     snr = torch.full((BATCH,), SNR_DB, dtype=torch.float32, device=dev)

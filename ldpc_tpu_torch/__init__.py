@@ -6,7 +6,7 @@ find:
 
   codes/   QC shift tables, the JSON code format, CCSDS near-earth, the
            IEEE 802.11n n = 1944 family
-  ops/     decode plans; the flooding CUDA kernel (``csrc/flooding.cu``,
+  ops/     decode plans; the decode CUDA kernel (``csrc/decode.cu``,
            4 kinds x bf16/f32 state), its plain PyTorch versions and wrapper
            (``ops/cuda_static.py``); the plain-torch decoder of the
            ``"torch"`` engine (``ops/decoder.py``); the f64 oracle

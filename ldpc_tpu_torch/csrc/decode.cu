@@ -643,7 +643,7 @@ extern "C" {
 // flooding, 1 layered (min-sum family); popcount: 0 stored sign product, 1
 // folded from the sign bits (min-sum family).  All pointers are device
 // pointers; nothing is allocated here.
-int flooding_launch(int kind, int store, int schedule, int popcount,
+int decode_launch(int kind, int store, int schedule, int popcount,
                     const float* llr, int batch, int n, int m, int z,
                     int mb_n, int nb_n, int dc, int dv, int n_edges,
                     const int* tables, int max_iters, float alpha,

@@ -14,7 +14,7 @@ and whether there was one.  The check runs BEFORE each update, so a word
 that does not converge reports the state after exactly ``max_iters``
 updates.
 
-On a CUDA tensor the wrapper launches ``csrc/flooding.cu`` (one thread
+On a CUDA tensor the wrapper launches ``csrc/decode.cu`` (one thread
 block per word; see the note at the head of that file) or raises.  On a CPU
 tensor it runs ``flooding_reference`` or ``layered_reference``, the same
 arithmetic written as batched tensor operations, with the same rounding
@@ -60,7 +60,7 @@ _QMAX = 127.0          # symmetric int8 clip
 _MAX_SMEM = 232_448 - 1024   # per-block shared memory, less static + margin
 # The argmin plane stores a slot index as a number in the store type.
 _ARGMIN_LIMIT = {"bfloat16": 256, "float32": 1 << 24, "int8": 127}
-_SOURCE = "flooding"
+_SOURCE = "decode"
 
 
 def _store_name(store_dtype) -> str:
@@ -142,7 +142,7 @@ def kernel_tables(plan: DecodePlan) -> np.ndarray:
 def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
                store: str = "bfloat16", schedule: str = "flooding",
                popcount_sign: bool = False) -> int:
-    """Dynamic shared memory of one block (as ``csrc/flooding.cu`` sizes
+    """Dynamic shared memory of one block (as ``csrc/decode.cu`` sizes
     it): the tables and sign words (4 bytes each), the layered schedule's
     row scratch (z x (sign words + 4) 32-bit words), then the state planes
     in the store type (popcount_sign drops the sign-product plane)."""
@@ -467,9 +467,9 @@ def _lib() -> ctypes.CDLL:
         from ..csrc import load
         lib = load(_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flooding_launch.argtypes = [i, i, i, i, p, i, i, i, i, i, i, i,
+        lib.decode_launch.argtypes = [i, i, i, i, p, i, i, i, i, i, i, i,
                                         i, i, p, i, f, f, p, p, p, p]
-        lib.flooding_launch.restype = i
+        lib.decode_launch.restype = i
         _LIB = lib
     return _LIB
 
@@ -484,7 +484,7 @@ def _launch(llr: torch.Tensor, plan: DecodePlan, tables: torch.Tensor,
     if b:
         with torch.cuda.device(llr.device):
             stream = torch.cuda.current_stream(llr.device).cuda_stream
-            rc = lib.flooding_launch(
+            rc = lib.decode_launch(
                 KINDS.index(kind), list(STORES).index(store),
                 SCHEDULES.index(schedule), int(popcount), llr.data_ptr(),
                 b, plan.n, plan.m, plan.z, plan.block_rows, plan.block_cols,
