@@ -7,7 +7,9 @@ Phases, each printing its elapsed seconds; any failure exits non-zero with
 no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's view.
-2. build   nvcc builds ldpc_tpu_torch/csrc/decode.cu (ptxas report).
+2. build   nvcc builds ldpc_tpu_torch/csrc/decode.cu, split.cu and
+           barrier_probe.cu, one process each, all started together
+           (ptxas report).
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -52,10 +54,27 @@ no result line:
            (e) `cli evaluate --code wifi --engine cuda --schedule layered
            --store-dtype int8`; (f) every new variant once through
            evaluate_code.
-11. the kernels line, the card line again, and the result line.
+11. split  the phase-split pair (B7, csrc/split.cu) and the barrier probe
+           (B8): (a) ldpc_tpu_torch.scripts.split_ab at the JAX package's
+           protocol (near-earth, 16,384 words, 10 iterations, 3.4 dB, 4
+           trials), bf16 then f32, word-exact to the fused kernel; (b) the
+           split kernels against their plain version and the fused kernel,
+           near-earth 2,048 words at 3.0 and 3.4 dB, 50 iterations, bf16 and
+           f32, every word; (c) the main path's stage-1 shape (32,768 words,
+           12 iterations, 3.4 dB): split against fused, median of 7 calls;
+           split_r and split_c alone, each held against its plain version on
+           the same state; host reads; bounds; global bytes a word; (d) the
+           giant path: synthetic_qc_code(2048, 8, 24), refused by the fused
+           kernel, 4,096 words at 4.0 dB, 8 iterations, through the split
+           pair (bit/s, iterations, FER), and 1,024 words at 1.1 dB, where
+           words fail, against the plain version; (e) the main path's 3.4 dB
+           batches again through a dep_stride=4 cascade (the barrier probe
+           runs as it is built), every word equal, and barrier_lowers().
+12. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
-each near-earth path of phase 10) clears the launch counts just before it
+each near-earth path of phase 10, the split A/B, the giant path and the
+dep_stride replay of phase 11) clears the launch counts just before it
 and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
@@ -80,9 +99,17 @@ import numpy as np
 import torch
 
 from ldpc_tpu_torch import cli
-from ldpc_tpu_torch.codes import QCCode, near_earth_code, wifi_code
-from ldpc_tpu_torch.ops import cuda_static
+from ldpc_tpu_torch.codes import (QCCode, near_earth_code,
+                                  synthetic_qc_code, wifi_code)
+from ldpc_tpu_torch.ops import cuda_split, cuda_static
+from ldpc_tpu_torch.ops.cuda_split import (SplitState,
+                                           make_split_sweep_decoder,
+                                           split_c_reference,
+                                           split_r_reference,
+                                           split_reference, state_bytes)
+from ldpc_tpu_torch.ops.plan import DecodePlan
 from ldpc_tpu_torch.ops.cuda_static import (KINDS, STORES,
+                                            barrier_lowers, barrier_probe,
                                             flooding_reference,
                                             layered_reference,
                                             make_static_sweep_decoder)
@@ -92,6 +119,7 @@ from ldpc_tpu_torch.sim.evaluate import (StagedDecoder,
                                          evaluate_code,
                                          make_staged_decoder_device,
                                          make_staged_sweep_device, transmit)
+from ldpc_tpu_torch.scripts import split_ab
 from ldpc_tpu_torch.sim.stats import BerStatistics, wilson_interval
 from ldpc_tpu_torch.utils.device import device_info
 
@@ -169,7 +197,26 @@ NEW_PATHS = {("min-sum", "bfloat16", "layered", False): "near-earth layered",
              ("min-sum", "bfloat16", "flooding", True):
                  "near-earth popcount replay"}
 CLI_PATH = "evaluate (e) cli layered int8"
+SPLIT_PATH = "split A/B"
+GIANT_PATH = "giant synthetic"
+DEP_PATH = "near-earth dep_stride"
 PATH_LAUNCHES: dict[str, dict] = {}
+
+# Phase 11.  (a) the JAX package's split A/B protocol (scripts/split_ab.py
+# defaults): near-earth, 16,384 words, 10 iterations, 3.4 dB, 4 trials.
+SPLIT_AB_ARGS = ["--code", "near-earth", "--batch", "16384", "--mi", "10",
+                 "--snr", "3.4", "--trials", "4"]
+SPLIT_STORES = ("bfloat16", "float32")
+# (d) the giant code and scripts/giant_code.py's --snr-db and --iters;
+# 1.1 dB is an SNR where words fail within 8 iterations
+GIANT = dict(z=2048, block_rows=8, block_cols=24, col_weight=3, seed=0)
+GIANT_WORDS = 4096
+GIANT_SNR = 4.0
+GIANT_ITERS = 8
+GIANT_CHECK_WORDS = 1024
+GIANT_FAIL_SNR = 1.1
+DEP_STRIDE = 4
+PLAIN_CHUNK = 4096       # words per plain launch version (its memory peak)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -198,6 +245,15 @@ OPS_LAYERED = {"min-sum": (1, 8 + 6), "normalized-min-sum": (1, 9 + 8),
                "offset-min-sum": (1, 10 + 10)}
 
 SOURCE = "ldpc_tpu_torch/csrc/decode.cu"
+SPLIT_SOURCE = "ldpc_tpu_torch/csrc/split.cu"
+PROBE_SOURCE = "ldpc_tpu_torch/csrc/barrier_probe.cu"
+TPU_SPLIT = {"r": ("ldpc_tpu/ops/pallas_split.py:204",
+                   "B7 ldpc_tpu/ops/pallas_split.py:83 kernel_r (phase A + "
+                   "latches)"),
+             "c": ("ldpc_tpu/ops/pallas_split.py:226",
+                   "B7 ldpc_tpu/ops/pallas_split.py:158 kernel_c (phase B)")}
+TPU_PROBE = ("ldpc_tpu/ops/pallas_static.py:142",
+             "B8 ldpc_tpu/ops/pallas_static.py:128 _barrier_lowers probe")
 TPU_CALL = "ldpc_tpu/ops/pallas_static.py:621"
 TPU_NEW = {"layered": "B3 ldpc_tpu/ops/pallas_static.py:566-599 layered_body",
            "int8": "B5 ldpc_tpu/ops/pallas_static.py:195-223 _st/_ld/_st_raw",
@@ -280,10 +336,16 @@ def key(kind: str, store: str, schedule: str = "flooding",
     return (kind, store, schedule, popcount)
 
 
+def clear_launches() -> None:
+    """Zero every kernel's launch count, just before a path runs."""
+    cuda_static.launches.clear()
+    cuda_split.launches.clear()
+
+
 def record_path(path: str) -> dict:
     """The launch counts of the path just run (cleared just before it), kept
     under its name for the kernels line."""
-    got = dict(cuda_static.launches)
+    got = {**cuda_static.launches, **cuda_split.launches}
     PATH_LAUNCHES[path] = got
     return got
 
@@ -344,19 +406,23 @@ def phase_card(dev) -> str:
 
 def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
-    build("decode")
-    rep = build_report("decode")
-    log("build", f"decode.cu built in {rep['seconds']:.1f} s "
-        f"(cached: {rep['cached']})")
-    ptxas = rep["ptxas"]
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", ptxas)]
-    stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", ptxas)]
-    log("build", f"ptxas: {ptxas.count('Compiling entry function')} kernel "
-        f"instances, {min(regs, default=0)}-{max(regs, default=0)} "
-        f"registers a thread, {sum(spills)} bytes of spills, largest stack "
-        f"frame {max(stack, default=0)} bytes")
-    return rep
+    sources = ("decode", "split", "barrier_probe")
+    build(*sources)
+    reps = {}
+    for name in sources:
+        rep = reps[name] = build_report(name)
+        ptxas = rep["ptxas"]
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill", ptxas)]
+        stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame",
+                                            ptxas)]
+        log("build", f"{name}.cu built in {rep['seconds']:.1f} s (cached: "
+            f"{rep['cached']}); ptxas: "
+            f"{ptxas.count('Compiling entry function')} kernel instances, "
+            f"{min(regs, default=0)}-{max(regs, default=0)} registers a "
+            f"thread, {sum(spills)} bytes of spills, largest stack frame "
+            f"{max(stack, default=0)} bytes")
+    return reps
 
 
 def phase_kernel(dev, code, gen) -> dict:
@@ -422,7 +488,7 @@ def drive_sweep(dev, code, step, tag: str, path: str) -> dict:
     timed = TIMED_BATCHES
     stats = BerStatistics(code.n)
     points = {}
-    cuda_static.launches.clear()
+    clear_launches()
     for snr in SNR_POINTS:
         before = sum(cuda_static.launches.values())
         snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
@@ -667,7 +733,7 @@ def _sweep(dev, code, snrs, **kw):
 def phase_evaluate(dev) -> dict:
     out = {}
     # (a) the reference's wifi preset through the CLI's own function
-    cuda_static.launches.clear()
+    clear_launches()
     bench = run_cli(dev, ["bench", "wifi", "--transmissions", str(BATCH),
                           "--batch-size", str(BATCH), "--engine", "cuda"])
     got = record_path("evaluate (a) bench wifi")
@@ -678,7 +744,7 @@ def phase_evaluate(dev) -> dict:
         raise AssertionError("bench wifi ran without the kernel")
     out["bench_wifi"] = bench
     # (b) the sum-product waterfall, f32 state, true LLRs
-    cuda_static.launches.clear()
+    clear_launches()
     by_rate = collections.defaultdict(list)
     for rate, snr in JAX_SP_FER:
         by_rate[rate].append(snr)
@@ -707,7 +773,7 @@ def phase_evaluate(dev) -> dict:
     # (c) normalized and offset min-sum, bf16 state, rate 5/6 at 3.0 dB
     code = wifi_code(1944, 5 / 6)
     for kind in ("normalized-min-sum", "offset-min-sum"):
-        cuda_static.launches.clear()
+        clear_launches()
         _, reps = _sweep(dev, code, [3.0], kind=kind,
                          store_dtype="bfloat16", seed=WIFI_SEED)
         got = record_path(f"evaluate (c) {kind}/bfloat16")
@@ -722,7 +788,7 @@ def phase_evaluate(dev) -> dict:
                              ("offset-min-sum", "float32", 3.0),
                              ("sum-product", "bfloat16", 2.5)):
         sp = kind == "sum-product"
-        cuda_static.launches.clear()
+        clear_launches()
         _, reps = _sweep(dev, code, [snr], kind=kind, scale_llr=sp,
                          store_dtype=store, seed=WIFI_SEED)
         got = record_path(f"evaluate (d) {kind}/{store}")
@@ -823,7 +889,7 @@ def phase_new_paths(dev, code, gen, main: dict) -> None:
                         redo_capacity=REDO_CAP, engine="cuda",
                         popcount_sign=True, device=dev)
     g = torch.Generator(device=dev)
-    cuda_static.launches.clear()
+    clear_launches()
     words = 0
     for snr, p in main["points"].items():
         snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
@@ -914,7 +980,7 @@ def phase_new_variants(dev, gen) -> dict:
 def phase_new_evaluate(dev) -> None:
     """(e) the CLI's evaluate with layered + int8 on 802.11n; (f) every new
     variant once through evaluate_code (rate 5/6, 3.0 dB, 12 -> 50)."""
-    cuda_static.launches.clear()
+    clear_launches()
     st = run_cli(dev, ["evaluate", "--code", "wifi", "--engine", "cuda",
                        "--schedule", "layered", "--store-dtype", "int8",
                        "--transmissions", str(BATCH), "--batch-size",
@@ -927,7 +993,7 @@ def phase_new_evaluate(dev) -> None:
                              "kernel")
     code = wifi_code(1944, 5 / 6)
     for kind, store, sched, pc in NEW_VARIANTS:
-        cuda_static.launches.clear()
+        clear_launches()
         _, reps = _sweep(dev, code, [3.0], kind=kind, store_dtype=store,
                          schedule=sched, popcount_sign=pc, seed=WIFI_SEED)
         got = record_path(f"evaluate (f) {variant_name(kind, store, sched, pc)}")
@@ -936,6 +1002,290 @@ def phase_new_evaluate(dev) -> None:
         if got.get(key(kind, store, sched, pc), 0) == 0:
             raise AssertionError(f"{variant_name(kind, store, sched, pc)} "
                                  "sweep ran without the kernel")
+
+
+def _slice_state(s: SplitState, lo: int, hi: int) -> SplitState:
+    return SplitState(**{f: getattr(s, f)[lo:hi]
+                         for f in SplitState.__dataclass_fields__})
+
+
+def _plain_launch(fn, s: SplitState, *args) -> SplitState:
+    """A plain launch version over PLAIN_CHUNK words at a time (its
+    gathered [words, m, dc] temporaries are the memory peak)."""
+    parts = [fn(_slice_state(s, lo, lo + PLAIN_CHUNK), *args)
+             for lo in range(0, s.tot.shape[0], PLAIN_CHUNK)]
+    return SplitState(**{f: torch.cat([getattr(x, f) for x in parts])
+                         for f in SplitState.__dataclass_fields__})
+
+
+def _state_err(got: SplitState, want: SplitState, names) -> float:
+    """Max |kernel - plain| over the named planes (0 when all equal)."""
+    return max(float((getattr(got, n).double() -
+                      getattr(want, n).double()).abs().max())
+               for n in names)
+
+
+def split_bound(plan, store: str, live_r: int, live_c: int,
+                batch: int) -> tuple[float, str]:
+    """Least time on an H100 for ``live_r`` words' split_r work and
+    ``live_c`` words' split_c work of ``batch`` words: the bytes each moves
+    (state_bytes; each launch reads every word's success flag) over the HBM
+    rate vs 8 (phase A) and 3 (phase B) f32 operations per edge and live
+    word over peak."""
+    sb = state_bytes(plan, store)
+    edges = int(plan.cn_valid.sum()) * plan.z
+    n_launch = (live_r > 0) + (live_c > 0)
+    t_bytes = ((live_r * sb["split_r"] + live_c * sb["split_c"] +
+                4 * batch * n_launch) / HBM_BYTES_PER_S * 1e3)
+    t_ops = edges * (OPS["min-sum"][0] * live_r +
+                     OPS["min-sum"][1] * live_c) / F32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_split(dev, code, gen) -> dict:
+    """(a) the split A/B; (b) split vs plain vs fused, every word; (c) the
+    stage-1 shape: times, launches alone against their plain versions,
+    bounds.  Returns the kernels line's split rows and the numbers."""
+    out = {"rows": {}}
+    # (a) the A/B script at the JAX protocol, bf16 then f32
+    clear_launches()
+    for store in SPLIT_STORES:
+        summ = split_ab.main(SPLIT_AB_ARGS + ["--store", store])
+        log("11split", f"(a) split_ab {store}: word_exact "
+            f"{summ['word_exact']}, best ms {summ['best_ms']}, median ms "
+            f"{summ['median_ms']}, split/mono "
+            f"{1 / summ['speedup_split_vs_mono']:.3f}x, host reads "
+            f"{summ['split_host_reads']}")
+        if not summ["word_exact"]:
+            raise AssertionError(f"split_ab {store}: not word-exact")
+        out[f"ab_{store}"] = summ
+    got = record_path(SPLIT_PATH)
+    for store in SPLIT_STORES:
+        if any(got.get((k, store), 0) == 0 for k in ("split_r", "split_c")):
+            raise AssertionError(f"split A/B {store} launched {got}")
+    plan = DecodePlan.from_code(code)
+    for store in SPLIT_STORES:
+        row = {"checked": 0, "mismatched": 0, "max_abs_err": 0}
+        # (b) every word equal to the plain version and the fused kernel
+        for snr in CHECK_SNRS:
+            llr = llr_batch(code, CHECK_WORDS, snr, gen, dev)
+            split = make_split_sweep_decoder(code, MAX_ITERS,
+                                             store_dtype=store, device=dev)
+            kern = split(llr)
+            plain = split_reference(llr, plan, MAX_ITERS, store)
+            mono = make_static_sweep_decoder(code, MAX_ITERS,
+                                             store_dtype=store,
+                                             device=dev)(llr)
+            sync(dev)
+            c, cm = compare(kern, plain), compare(kern, mono)
+            row["checked"] += CHECK_WORDS
+            row["mismatched"] += c["mismatched"] + cm["mismatched"]
+            row["max_abs_err"] = max(row["max_abs_err"], c["max_abs_err"],
+                                     cm["max_abs_err"])
+            log("11split", f"(b) {store} {CHECK_WORDS} words {snr} dB "
+                f"{MAX_ITERS} it: {c['mismatched']} words differ from the "
+                f"plain version, {cm['mismatched']} from the fused kernel; "
+                f"converged {int(kern[2].sum())}/{CHECK_WORDS}, host reads "
+                f"{split.host_reads}")
+            if c["mismatched"] or cm["mismatched"]:
+                raise AssertionError(f"split {store} at {snr} dB differs")
+        # (c) the main path's stage-1 shape
+        llr = llr_batch(code, BATCH, 3.4, gen, dev)
+        split = make_split_sweep_decoder(code, PHASE1_ITERS,
+                                         store_dtype=store, device=dev)
+        mono = make_static_sweep_decoder(code, PHASE1_ITERS,
+                                         store_dtype=store, device=dev)
+        kern, want = split(llr), mono(llr)
+        reads = split.host_reads
+        sync(dev)
+        cm = compare(kern, want)
+        row["checked"] += BATCH
+        row["mismatched"] += cm["mismatched"]
+        if cm["mismatched"]:
+            raise AssertionError(f"split {store} stage 1 differs from the "
+                                 f"fused kernel on {cm['mismatched']} words")
+        split_ms = time_ms(lambda: split(llr), dev, reps=KERNEL_REPS)
+        mono_ms = time_ms(lambda: mono(llr), dev, reps=KERNEL_REPS)
+        it = kern[1].long()
+        ok = kern[2]
+        live_r = int(torch.where(ok, it + 1, PHASE1_ITERS + 1).sum())
+        live_c = int(torch.where(ok, it, PHASE1_ITERS).sum())
+        dec_bnd, dec_by = split_bound(plan, store, live_r, live_c, BATCH)
+        sb = state_bytes(plan, store)
+        log("11split", f"(c) {store} stage 1 ({BATCH} words, "
+            f"{PHASE1_ITERS} it, 3.4 dB): split {split_ms:.3f} ms vs fused "
+            f"{mono_ms:.3f} ms ({split_ms / mono_ms:.3f}x), {reads} host "
+            f"reads; bound {dec_bnd:.4f} ms ({dec_by}; {live_r} split_r and "
+            f"{live_c} split_c word-launches); {sb['word']} global bytes a "
+            "word")
+        # each kernel alone, against its plain version on the same state
+        t = cuda_static._RefTables(plan, dev)
+        tables = torch.as_tensor(cuda_static.kernel_tables(plan), device=dev)
+        n_ok = torch.zeros(PHASE1_ITERS + 1, dtype=torch.int32, device=dev)
+        st = SplitState.start(llr, plan, PHASE1_ITERS, store)
+        errs = {}
+        plain_r, plain_ms_r = timed_once(
+            lambda: _plain_launch(split_r_reference, st, t, 0), dev)
+        cuda_split.launch("r", st, plan, tables, n_ok, 0)
+        sync(dev)
+        errs["r"] = _state_err(st, plain_r, ("m1", "m2", "am", "sp", "bits",
+                                             "errors", "iters", "success"))
+        plain_c, plain_ms_c = timed_once(
+            lambda: _plain_launch(split_c_reference, st, t), dev)
+        cuda_split.launch("c", st, plan, tables, n_ok)
+        sync(dev)
+        errs["c"] = _state_err(st, plain_c, ("tot",))
+        ms = {"r": time_ms(lambda: cuda_split.launch("r", st, plan, tables,
+                                                     n_ok, 0),
+                           dev, reps=KERNEL_REPS),
+              "c": time_ms(lambda: cuda_split.launch("c", st, plan, tables,
+                                                     n_ok),
+                           dev, reps=KERNEL_REPS)}
+        live = int((st.success == 0).sum())
+        for k, plain_ms in (("r", plain_ms_r), ("c", plain_ms_c)):
+            bnd, by = split_bound(plan, store, live if k == "r" else 0,
+                                  live if k == "c" else 0, BATCH)
+            log("11split", f"(c) split_{k} {store} alone: {ms[k]:.4f} ms, "
+                f"plain {plain_ms:.1f} ms, bound {bnd:.4f} ms ({by}; {live} "
+                f"live words, {sb['split_' + k]} bytes each), max |kernel - "
+                f"plain| {errs[k]}")
+            if errs[k]:
+                raise AssertionError(f"split_{k} {store} differs from its "
+                                     "plain version")
+            out["rows"][(k, store)] = {
+                "ms": ms[k], "plain_ms": plain_ms, "bound_ms": bnd,
+                "bound_by": by, "max_abs_err": max(errs[k],
+                                                   row["max_abs_err"]),
+                "mismatched_words": row["mismatched"],
+                "words_checked": row["checked"],
+                "global_bytes_per_word": sb["word"],
+                "bytes_per_live_word": sb["split_" + k],
+                "shape": f"{BATCH} words x {code.n} (near-earth), one launch,"
+                         f" {live} live words, 3.4 dB"}
+        out[f"stage1_{store}"] = {
+            "split_ms": split_ms, "mono_ms": mono_ms, "host_reads": reads,
+            "bound_ms": dec_bnd, "bound_by": dec_by}
+    return out
+
+
+def phase_giant(dev, gen) -> dict:
+    """(d) a code the fused kernel refuses, through the split pair: bit/s,
+    iterations, FER; and held against the plain version where words
+    fail."""
+    giant = synthetic_qc_code(GIANT["z"], GIANT["block_rows"],
+                              GIANT["block_cols"],
+                              col_weight=GIANT["col_weight"],
+                              seed=GIANT["seed"])
+    if dev.type == "cuda":
+        try:
+            make_static_sweep_decoder(giant, GIANT_ITERS, device=dev)
+        except NotImplementedError as e:
+            log("11giant", f"the fused kernel refuses {giant.name}: {e}")
+        else:
+            raise AssertionError(f"the fused kernel took {giant.name}")
+    clear_launches()
+    dec = make_split_sweep_decoder(giant, GIANT_ITERS, device=dev)
+    secs, outs = [], []
+    for k in range(1 + TIMED_BATCHES):
+        llr = llr_batch(giant, GIANT_WORDS, GIANT_SNR, gen, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        res = dec(llr)
+        sync(dev)
+        if k:
+            secs.append(time.perf_counter() - t0)
+            outs.append(res)
+    got = record_path(GIANT_PATH)
+    if got.get(("split_r", "bfloat16"), 0) == 0:
+        raise AssertionError(f"the giant path launched {got}")
+    del llr
+    words = GIANT_WORDS * len(outs)
+    med = float(np.median(secs))
+    fe = sum(int(((e > 0) | ~ok).sum()) for e, _, ok in outs)
+    avg_it = sum(int(i.sum()) for _, i, _ in outs) / words
+    g = {"name": giant.name, "n": giant.n,
+         "bit_per_s": GIANT_WORDS * giant.n / med, "median_s": med,
+         "fer": fe / words, "avg_iterations": avg_it,
+         "global_bytes_per_word": state_bytes(dec.plan)["word"],
+         "host_reads": dec.host_reads}
+    log("11giant", f"{giant.name} (n {giant.n}), {GIANT_WORDS} words, "
+        f"{GIANT_SNR} dB, {GIANT_ITERS} it: {g['bit_per_s']:.6g} bit/s "
+        f"(median {med * 1e3:.2f} ms of {TIMED_BATCHES}), avg iters "
+        f"{avg_it:.3f}, FER {g['fer']:.5f}, {g['global_bytes_per_word']} "
+        f"global bytes a word, {g['host_reads']} host reads; launches {got}")
+    llr = llr_batch(giant, GIANT_CHECK_WORDS, GIANT_FAIL_SNR, gen, dev)
+    kern = dec(llr)
+    plain = split_reference(llr, dec.plan, GIANT_ITERS, chunk=128)
+    sync(dev)
+    c = compare(kern, plain)
+    failed = int((~kern[2]).sum())
+    log("11giant", f"{GIANT_CHECK_WORDS} words at {GIANT_FAIL_SNR} dB: "
+        f"{c['mismatched']} differ from the plain version; {failed} failed "
+        "words")
+    if c["mismatched"] or failed == 0:
+        raise AssertionError(f"giant check: {c['mismatched']} mismatched, "
+                             f"{failed} failed words")
+    g["check_failed_words"] = failed
+    g["check_words"] = GIANT_CHECK_WORDS
+    return g
+
+
+def phase_dep_stride(dev, code, main: dict) -> dict:
+    """(e) the main path's 3.4 dB batches (generator states replayed)
+    through a dep_stride cascade, every word equal; the barrier probe, run
+    as the cascade is built, against its plain version.  Returns the
+    probe's row."""
+    clear_launches()
+    dep = StagedDecoder(code, MAX_ITERS, phase1_iters=PHASE1_ITERS,
+                        redo_capacity=REDO_CAP, engine="cuda",
+                        dep_stride=DEP_STRIDE, device=dev)
+    gen_replay = torch.Generator(device=dev)
+    p = main["points"][3.4]
+    snr_db = torch.full((BATCH,), 3.4, dtype=torch.float32, device=dev)
+    for state, o in zip(p["states"], p["outs"]):
+        gen_replay.set_state(state)
+        llr, _, _, unc = transmit(code.n, snr_db, generator=gen_replay)
+        if not np.array_equal(unc.cpu().numpy(), o["errors_uncoded"]):
+            raise AssertionError("dep_stride: the replayed LLRs differ")
+        got = [x.cpu().numpy() for x in dep(llr)]
+        want = (o["errors_decoded"], o["iterations"], o["success"])
+        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+        if bad:
+            raise AssertionError(f"dep_stride={DEP_STRIDE}: {bad} outputs "
+                                 "differ from the main path's")
+    got = record_path(DEP_PATH)
+    lowers = barrier_lowers(dev)
+    log("11dep", f"{BATCH * len(p['outs'])} words of the main path at 3.4 "
+        f"dB decoded again with dep_stride={DEP_STRIDE}: all equal; "
+        f"barrier_lowers() {lowers}; launches {got}")
+    if got.get("barrier_probe", 0) == 0 or not lowers:
+        raise AssertionError(f"dep_stride path: probe launches {got}, "
+                             f"barrier_lowers {lowers}")
+    x = torch.from_numpy(np.linspace(-1.0, 1.0, 8 * 128, dtype=np.float32)
+                         .reshape(8, 128)).to(dev)
+    err = float((barrier_probe(x) - (x + x.abs())).abs().max())
+    ms = time_ms(lambda: barrier_probe(x), dev, reps=KERNEL_REPS)
+    plain_ms = time_ms(lambda: x + x.abs(), dev, reps=KERNEL_REPS)
+    t_bytes = 2 * 4 * x.numel() / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * x.numel() / F32_OPS_PER_S * 1e3
+    probe = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "shape": "[8, 128] float32"}
+    log("11dep", f"barrier_probe [8, 128]: {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {max(t_bytes, t_ops):.3g} ms, max |kernel - plain| "
+        f"{err}")
+    if err:
+        raise AssertionError("barrier_probe differs from x + |x|")
+    return probe
+
+
+def launch_row(path: str, k) -> dict:
+    """A row's launches: on the path meant to drive it, and on every path
+    that ran it."""
+    return {"path": path, "launches": PATH_LAUNCHES.get(path, {}).get(k, 0),
+            "launches_by_path": {p: c[k] for p, c in PATH_LAUNCHES.items()
+                                 if c.get(k)}}
 
 
 def driving_path(kind, store, schedule="flooding", popcount=False) -> str:
@@ -957,13 +1307,9 @@ def driving_path(kind, store, schedule="flooding", popcount=False) -> str:
 
 
 def path_launches(kind, store, schedule="flooding", popcount=False) -> dict:
-    """A row's launches: on the path meant to drive it, and on every path
-    that ran it."""
+    """The launches of a variant of the fused kernel (launch_row)."""
     k = key(kind, store, schedule, popcount)
-    path = driving_path(*k)
-    return {"path": path, "launches": PATH_LAUNCHES.get(path, {}).get(k, 0),
-            "launches_by_path": {p: c[k] for p, c in PATH_LAUNCHES.items()
-                                 if c.get(k)}}
+    return launch_row(driving_path(*k), k)
 
 
 def run(dev: torch.device) -> dict:
@@ -983,6 +1329,9 @@ def run(dev: torch.device) -> dict:
     phase_new_paths(dev, code, gen, main)
     new_variants = phase_new_variants(dev, gen)
     phase_new_evaluate(dev)
+    split = phase_split(dev, code, gen)
+    split["giant"] = phase_giant(dev, gen)
+    split["probe"] = phase_dep_stride(dev, code, main)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -1023,12 +1372,25 @@ def run(dev: torch.device) -> dict:
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "smem_bytes": v["smem"], "shape": v["shape"],
         })
+    for (k, store), v in split["rows"].items():
+        replaces, tpu = TPU_SPLIT[k]
+        rows.append({
+            "name": f"split_{k}[min-sum,{store}]", "route": "cuda",
+            "source": SPLIT_SOURCE, "replaces": replaces,
+            "tpu_kernel": f"{tpu}, {store} store",
+            **launch_row(SPLIT_PATH, (f"split_{k}", store)),
+            "library_ms": None, **v})
+    rows.append({
+        "name": "barrier_probe", "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": TPU_PROBE[0], "tpu_kernel": TPU_PROBE[1],
+        **launch_row(DEP_PATH, "barrier_probe"), "library_ms": None,
+        **split["probe"]})
     missing = [(r["name"], r["path"]) for r in rows if r["launches"] == 0]
     if missing:
         raise AssertionError(f"no launch on the driving path: {missing}")
     kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
-    return {"smi": smi, "kernels": kernels, "main": main}
+    return {"smi": smi, "kernels": kernels, "main": main, "split": split}
 
 
 def main() -> int:

@@ -11,9 +11,11 @@ then times each case with CUDA events: the median of REPS calls after one
 warm call.  The cases are the near-earth stage-1 shapes that chip_smoke.py
 drives: 32,768 words at 3.4 dB; min-sum bf16 flooding at 12 iterations,
 with the stored sign and with popcount_sign; layered bf16 at 6 sweeps, with
-both signs; and int8 flooding at 12 iterations.  It prints one JSON line per
-root.  The line holds the build's seconds, the registers ptxas gave each
-kernel instance, each case's ms, and a hash of each case's outputs (the
+both signs; int8 flooding at 12 iterations; and the phase-split pair
+(``ops/cuda_split.py``) at 12 iterations in bf16 and f32.  It prints one
+JSON line per root.  The line holds the build's seconds, the registers
+ptxas gave each kernel instance, each case's ms, and a hash of each case's
+outputs (the
 same across roots when their decodes agree).  It needs one card; it exits
 non-zero without one.
 """
@@ -31,13 +33,16 @@ BATCH = 32768
 SNR_DB = 3.4
 SEED = 20261017
 REPS = 15
-# (name, options of make_static_sweep_decoder, iterations)
+# (name, options of the decoder, iterations); "split" names the phase-split
+# decoder, the rest the fused kernel's make_static_sweep_decoder
 CASES = (("flooding[min-sum,bfloat16]", {}, 12),
          ("flooding[min-sum,bfloat16,popcount]", {"popcount_sign": True}, 12),
          ("layered[min-sum,bfloat16]", {"schedule": "layered"}, 6),
          ("layered[min-sum,bfloat16,popcount]",
           {"schedule": "layered", "popcount_sign": True}, 6),
-         ("flooding[min-sum,int8]", {"store_dtype": "int8"}, 12))
+         ("flooding[min-sum,int8]", {"store_dtype": "int8"}, 12),
+         ("split[min-sum,bfloat16]", {"store_dtype": "bfloat16"}, 12),
+         ("split[min-sum,float32]", {"store_dtype": "float32"}, 12))
 
 
 def _short(demangled: str) -> str:
@@ -74,20 +79,25 @@ def child(root: str) -> dict:
 
     from ldpc_tpu_torch.codes import near_earth_code
     from ldpc_tpu_torch.csrc import build, build_report
+    from ldpc_tpu_torch.ops.cuda_split import make_split_sweep_decoder
     from ldpc_tpu_torch.ops.cuda_static import make_static_sweep_decoder
     from ldpc_tpu_torch.sim.evaluate import transmit
 
     dev = torch.device("cuda", 0)
-    build("decode")
+    build("decode", "split")
     rep = build_report("decode")
     code = near_earth_code()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     snr = torch.full((BATCH,), SNR_DB, dtype=torch.float32, device=dev)
     llr = transmit(code.n, snr, generator=gen)[0]
     out = {"root": root, "build_s": rep["seconds"],
-           "registers": registers(rep["ptxas"]), "cases": {}}
+           "registers": {**registers(rep["ptxas"]),
+                         **registers(build_report("split")["ptxas"])},
+           "cases": {}}
     for name, opts, iters in CASES:
-        dec = make_static_sweep_decoder(code, iters, device=dev, **opts)
+        make = (make_split_sweep_decoder if name.startswith("split")
+                else make_static_sweep_decoder)
+        dec = make(code, iters, device=dev, **opts)
         res = dec(llr)
         times = []
         for _ in range(REPS):

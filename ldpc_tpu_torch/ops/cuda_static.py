@@ -23,9 +23,13 @@ Against the Pallas kernel the min-sum family agrees word for word too;
 sum-product agrees in statistics, since XLA's and torch's CPU
 ``tanh``/``log`` differ in the last bits.
 
+``barrier_lowers(device)`` is the counterpart of the Pallas kernel's
+``_barrier_lowers`` probe (``csrc/barrier_probe.cu``): a nonzero
+``dep_stride`` runs it on the card, where the JAX kernel's build does.
+
 ``launches`` counts kernel launches made through a wrapper, per
-``(kind, store, schedule, popcount_sign)``; a run clears it and reads it to
-show which work went through the kernel.
+``(kind, store, schedule, popcount_sign)`` and ``"barrier_probe"``; a run
+clears it and reads it to show which work went through the kernel.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from .plan import DecodePlan, frame_indices
 
 __all__ = ["KINDS", "STORES", "SCHEDULES", "make_static_sweep_decoder",
            "static_decode_counts", "flooding_reference",
-           "layered_reference", "kernel_tables", "smem_bytes"]
+           "layered_reference", "kernel_tables", "smem_bytes",
+           "barrier_probe", "barrier_lowers"]
 
 KINDS = ("min-sum", "normalized-min-sum", "offset-min-sum", "sum-product")
 STORES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -270,6 +275,14 @@ class _MinSumState:
                                             store)
         self.bits = torch.zeros(b, m, t.n_sw, dtype=torch.int64, device=dev)
 
+    @classmethod
+    def from_planes(cls, m1, m2, am, sp, bits, store):
+        """A stored state [b, m] (sign words [b, m, n_sw]), not copied."""
+        self = cls.__new__(cls)
+        self.store, self.popcount = store, sp is None
+        self.m1, self.m2, self.am, self.sp, self.bits = m1, m2, am, sp, bits
+        return self
+
     def sign(self, rows=slice(None)) -> torch.Tensor:
         """The sign product of the checks ``rows`` [b, r], f32."""
         if self.popcount:
@@ -309,6 +322,35 @@ def _row_stats(v, valid, t, popcount):
     return n1, n2, amn.to(torch.float32), nsp, bits
 
 
+def _syndrome_ok(tt: torch.Tensor, t: _RefTables) -> torch.Tensor:
+    """Per word, whether every check of the gathered totals [b, m, dc]
+    holds."""
+    return (((tt < 0) & t.cn_valid).sum(-1) % 2).sum(-1) == 0
+
+
+def _minsum_phase_a(tot, state: _MinSumState, t: _RefTables, kind: str,
+                   alpha: float, beta: float, popcount: bool):
+    """Phase A of the min-sum family over all checks: returns per word
+    whether the totals satisfy every check, and writes each check's new
+    state, from the totals and its old state, into ``state``."""
+    tt = _ld(tot)[:, t.var_idx]                             # [b, m, dc]
+    v = tt - state.messages(slice(None), t, kind, alpha, beta)
+    state.write(slice(None), _row_stats(v, t.cn_valid, t, popcount))
+    return _syndrome_ok(tt, t)
+
+
+def _minsum_phase_b(chan, state: _MinSumState, t: _RefTables, kind: str,
+                   alpha: float, beta: float, store: torch.dtype):
+    """Phase B of the min-sum family: totals = -chan + each rebuilt c2v
+    message, in column-slot order, rounded to the store."""
+    g = t.chk_idx                                           # [n, dv]
+    sgn = state.sign()[:, g] * (1.0 - 2.0 * _column_bits(state.bits, t))
+    mag = torch.where(state.am[:, g].float() == t.chk_d.to(torch.float32),
+                      _ld(state.m2)[:, g], _ld(state.m1)[:, g])
+    msg = sgn * _adjust(mag, kind, alpha, beta)
+    return _st(_sum_in_order(-_ld(chan), msg, t.vn_valid), store)
+
+
 def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
                      kind: str, store: torch.dtype, alpha: float,
                      beta: float, popcount: bool):
@@ -316,7 +358,7 @@ def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
     sum_product = kind == "sum-product"
     b, dev = llr.shape[0], llr.device
     m = t.var_idx.shape[0]
-    chan = _st(_sanitize(llr), store)
+    chan = _st(llr, store)
     tot = _st(-_ld(chan), store)
     if sum_product:
         sp = _st(torch.ones(b, m, device=dev), store)
@@ -331,10 +373,9 @@ def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
     valid = t.cn_valid
     for it in range(max_iters + 1):
         # ---- phase A: syndrome + new check state, all checks at once ----
-        tt = _ld(tot)[:, t.var_idx]                         # [b, m, dc]
-        par = ((tt < 0) & valid).sum(-1) % 2
-        ok = par.sum(-1) == 0
         if sum_product:
+            tt = _ld(tot)[:, t.var_idx]                     # [b, m, dc]
+            ok = _syndrome_ok(tt, t)
             sgn = _ld(sp)[..., None] * (1.0 - 2.0 * _slot_bits(bits, t))
             phi_old = _ld(stash[:, t.stash_idx])
             rest = (_ld(s_tot)[..., None] - phi_old).clamp(_PHI_MIN,
@@ -349,8 +390,7 @@ def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
             bits = _pack_bits(neg, t)
             sp = _st((1 - 2 * (neg.sum(-1) % 2)).to(f32), store)
         else:
-            v = tt - state.messages(slice(None), t, kind, alpha, beta)
-            state.write(slice(None), _row_stats(v, valid, t, popcount))
+            ok = _minsum_phase_a(tot, state, t, kind, alpha, beta, popcount)
         # ---- latches (pallas_static.py _latches) ----
         iters = iters.masked_fill(ok & ~success, it)
         errs = (_ld(tot) < 0).sum(-1, dtype=torch.int32)
@@ -359,19 +399,15 @@ def _reference_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
         if it == max_iters or bool(success.all()):
             break
         # ---- phase B: totals = -chan + sum over column slots, in order ----
-        g = t.chk_idx                                       # [n, dv]
         if sum_product:
+            g = t.chk_idx                                   # [n, dv]
             sgn = _ld(sp)[:, g] * (1.0 - 2.0 * _column_bits(bits, t))
             rest = (_ld(s_tot)[:, g] -
                     _ld(stash[:, t.chk_stash])).clamp(_PHI_MIN, _PHI_MAX)
-            msg = sgn * _phi(rest)
+            tot = _st(_sum_in_order(-_ld(chan), sgn * _phi(rest),
+                                    t.vn_valid), store)
         else:
-            sgn = state.sign()[:, g] * (
-                1.0 - 2.0 * _column_bits(state.bits, t))
-            mag = torch.where(state.am[:, g].float() == t.chk_d.to(f32),
-                              _ld(state.m2)[:, g], _ld(state.m1)[:, g])
-            msg = sgn * _adjust(mag, kind, alpha, beta)
-        tot = _st(_sum_in_order(-_ld(chan), msg, t.vn_valid), store)
+            tot = _minsum_phase_b(chan, state, t, kind, alpha, beta, store)
     return errors, iters, success
 
 
@@ -381,7 +417,7 @@ def _layered_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
     z = t.z
     b, dev = llr.shape[0], llr.device
     m = t.var_idx.shape[0]
-    chan = _st(_sanitize(llr), store)
+    chan = _st(llr, store)
     tot = _st(-_ld(chan), store)
     state = _MinSumState(b, m, t, store, popcount, dev)
     errors = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -389,8 +425,7 @@ def _layered_chunk(llr: torch.Tensor, t: _RefTables, max_iters: int,
     success = torch.zeros(b, dtype=torch.bool, device=dev)
     for it in range(max_iters + 1):
         # ---- syndrome of the totals at the start of the sweep ----
-        tt = _ld(tot)[:, t.var_idx]
-        ok = (((tt < 0) & t.cn_valid).sum(-1) % 2).sum(-1) == 0
+        ok = _syndrome_ok(_ld(tot)[:, t.var_idx], t)
         iters = iters.masked_fill(ok & ~success, it)
         errs = (_ld(tot) < 0).sum(-1, dtype=torch.int32)
         errors = torch.where(success, errors, errs)
@@ -437,8 +472,9 @@ def flooding_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
     """Plain PyTorch version of the flooding kernel, on ``llr``'s device.
 
     Decodes ``chunk`` words at a time (the gathered [chunk, m, dmax] state
-    is the memory peak) and stops a chunk once all its words converged."""
-    return _reference(_reference_chunk, llr, plan, max_iters, kind,
+    is the memory peak) and stops a chunk once all its words converged.
+    Non-finite LLRs are sanitised first, as at the kernel's entry."""
+    return _reference(_reference_chunk, _sanitize(llr), plan, max_iters, kind,
                       store_dtype, alpha, beta, popcount_sign, chunk, tables)
 
 
@@ -453,7 +489,7 @@ def layered_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
     the totals, edge by edge in slot order."""
     if kind == "sum-product":
         raise ValueError("sum-product kernel supports flooding only")
-    return _reference(_layered_chunk, llr, plan, max_iters, kind,
+    return _reference(_layered_chunk, _sanitize(llr), plan, max_iters, kind,
                       store_dtype, alpha, beta, popcount_sign, chunk, tables)
 
 
@@ -500,12 +536,66 @@ def _launch(llr: torch.Tensor, plan: DecodePlan, tables: torch.Tensor,
     return out[0], out[1], out[2].bool()
 
 
+_PROBE_LIB: ctypes.CDLL | None = None
+_BARRIER_OK: dict[torch.device, bool] = {}
+
+
+def _probe_lib() -> ctypes.CDLL:
+    global _PROBE_LIB
+    if _PROBE_LIB is None:
+        from ..csrc import load
+        lib = load("barrier_probe")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.barrier_probe_launch.argtypes = [p, p, i, p]
+        lib.barrier_probe_launch.restype = i
+        _PROBE_LIB = lib
+    return _PROBE_LIB
+
+
+def barrier_probe(x: torch.Tensor) -> torch.Tensor:
+    """``x + |x|`` with both terms passed through a compiler barrier: the
+    kernel ``csrc/barrier_probe.cu`` on a CUDA tensor, the plain
+    ``x + x.abs()`` on a CPU one.  ``x`` is contiguous float32."""
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("barrier_probe takes a contiguous float32 tensor")
+    if x.device.type == "cpu":
+        return x + x.abs()
+    lib = _probe_lib()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = lib.barrier_probe_launch(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"barrier_probe launch failed: CUDA error {rc}")
+    launches["barrier_probe"] += 1
+    return out
+
+
+def barrier_lowers(device=None) -> bool:
+    """Whether the compiler barrier leaves values as they are: the probe
+    of the Pallas kernel's ``_barrier_lowers`` on ``device`` (default: the
+    card), ``a + |a|`` over an [8, 128] float32 array of
+    ``linspace(-1, 1, 1024)``, compared exactly with numpy.  Probed once a
+    process per device; a failure to build or launch raises."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _BARRIER_OK:
+        x = np.linspace(-1.0, 1.0, 8 * 128,
+                        dtype=np.float32).reshape(8, 128)
+        got = barrier_probe(torch.from_numpy(x).to(dev)).cpu().numpy()
+        _BARRIER_OK[dev] = bool(np.array_equal(got, x + np.abs(x)))
+    return _BARRIER_OK[dev]
+
+
 def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
                               kind: str = "min-sum",
                               store_dtype="bfloat16", alpha: float = 0.75,
                               beta: float = 0.15,
                               schedule: str = "flooding",
                               popcount_sign: bool | None = None,
+                              dep_stride: int | None = None,
                               device=None):
     """Build ``decode_counts(llr[B, n] float32) -> (errors, iterations,
     success)`` for ``code`` on ``device`` (default: the card).
@@ -519,7 +609,13 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
     family) counts sweeps; ``popcount_sign`` folds the sign product from
     the sign bits (min-sum family; sum-product ignores it), with the same
     trajectories.  On CUDA it launches the kernel; on the CPU it runs the
-    plain version."""
+    plain version.
+
+    ``dep_stride`` gates the Pallas kernel's unrolled rotation window behind
+    a barrier, with bit-identical trajectories.  This kernel indexes
+    ``(i + s) mod z`` and unrolls no rotations, so it has nothing to gate:
+    a nonzero value runs ``barrier_lowers`` on the card, where the Pallas
+    kernel's build probes, and decodes exactly as ``dep_stride=0``."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule: {schedule}")
     _check_kind(kind)
@@ -545,6 +641,8 @@ def make_static_sweep_decoder(code: QCCode, max_iters: int = 50, *,
             f"of the {store} argmin plane ({_ARGMIN_LIMIT[store]})")
     alpha = float(alpha) if kind == "normalized-min-sum" else 0.0
     beta = float(beta) if kind == "offset-min-sum" else 0.0
+    if dep_stride and dev.type == "cuda":
+        barrier_lowers(dev)
     if dev.type == "cuda":
         smem = smem_bytes(plan, kind, store, schedule, popcount)
         if smem > _MAX_SMEM:

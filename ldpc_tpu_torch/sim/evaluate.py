@@ -6,7 +6,8 @@ Two decode engines, named after what they replace:
   plain-torch flooding decoder of ``ops/decoder.py`` (compute ``dtype``);
 * ``"cuda"``, the counterpart of ``"pallas"``: the CUDA kernel of
   ``ops/cuda_static.py`` (state in ``store_dtype``, default bfloat16; the
-  ``schedule`` "flooding" or "layered"; ``popcount_sign``).
+  ``schedule`` "flooding" or "layered"; ``popcount_sign``; ``dep_stride``,
+  which decodes as 0 after the barrier probe).
 
 A staged decode runs a batch with a small iteration budget first; the words
 that did not converge are decoded again from scratch with the full budget.
@@ -88,10 +89,6 @@ def _refuse_later_options(*, engine, store_dtype, schedule, tile_b,
         raise NotImplementedError(
             "sort_words waits in ROADMAP.md Queue A item 5 (the rest of "
             "sim/evaluate.py)")
-    if dep_stride:
-        raise NotImplementedError(
-            "dep_stride > 0 is kernel B8 of ROADMAP.md Queue B, not ported "
-            "yet")
     if engine == "torch" and store_dtype is not None:
         raise ValueError("store_dtype is a cuda-engine option (the torch "
                          "engine's compute dtype is `dtype`)")
@@ -99,7 +96,7 @@ def _refuse_later_options(*, engine, store_dtype, schedule, tile_b,
 
 def _engine_counts_fn(code: QCCode, max_iters: int, *, kind: str, dtype,
                       engine: str, store_dtype, schedule: str,
-                      popcount_sign, device):
+                      popcount_sign, dep_stride, device):
     """``fn(llr[B, n]) -> (errors, iterations, success)`` of one engine."""
     if engine == "torch":
         dec = decoder_for_code(code, max_iters, kind=kind, dtype=dtype)
@@ -113,7 +110,8 @@ def _engine_counts_fn(code: QCCode, max_iters: int, *, kind: str, dtype,
     return make_static_sweep_decoder(
         code, max_iters, kind=kind,
         store_dtype="bfloat16" if store_dtype is None else store_dtype,
-        schedule=schedule, popcount_sign=popcount_sign, device=device)
+        schedule=schedule, popcount_sign=popcount_sign,
+        dep_stride=dep_stride, device=device)
 
 
 class StagedDecoder:
@@ -152,7 +150,8 @@ class StagedDecoder:
         self.decoders = [_engine_counts_fn(
             code, it, kind=kind, dtype=dtype, engine=engine,
             store_dtype=store_dtype, schedule=schedule,
-            popcount_sign=popcount_sign, device=self.device)
+            popcount_sign=popcount_sign, dep_stride=dep_stride,
+            device=self.device)
             for it in phases + [max_iters]]
         self.last_branches: list[str] = []
 

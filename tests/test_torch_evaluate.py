@@ -149,18 +149,22 @@ def test_later_options_raise(kw, err, match):
 
 def test_staged_decoder_refuses_kernel_levers():
     """The kernel levers belong to the cuda engine (ValueError on the torch
-    engine, as on JAX's xla); there popcount_sign and dep_stride 0 are
-    taken, and dep_stride > 0 (kernel B8) is the one refusal left."""
+    engine, as on JAX's xla); there popcount_sign and every dep_stride are
+    taken, and dep_stride > 0 (kernel B8) decodes as dep_stride 0."""
     code = wifi_code()
-    with pytest.raises(ValueError, match="levers"):
-        make_staged_decoder_device(code, 8, popcount_sign=True,
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="B8"):
-        make_staged_decoder_device(code, 8, engine="cuda", dep_stride=2,
-                                   device="cpu")
-    for kw in (dict(popcount_sign=True), dict(dep_stride=0)):
-        make_staged_decoder_device(code, 8, phase1_iters=3, engine="cuda",
-                                   device="cpu", **kw)
+    for kw in (dict(popcount_sign=True), dict(dep_stride=2)):
+        with pytest.raises(ValueError, match="levers"):
+            make_staged_decoder_device(code, 8, device="cpu", **kw)
+    llr = torch.from_numpy(_llr(code.n, 3.0))
+    want = make_staged_decoder_device(code, 8, phase1_iters=3,
+                                      engine="cuda", device="cpu")(llr)
+    for kw in (dict(popcount_sign=True), dict(dep_stride=0),
+               dict(dep_stride=2)):
+        got = make_staged_decoder_device(code, 8, phase1_iters=3,
+                                         engine="cuda", device="cpu",
+                                         **kw)(llr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("popcount_sign", [None, False, True])
@@ -171,8 +175,7 @@ def test_engine_options_raise_as_jax(engine, schedule, dep_stride,
                                      popcount_sign):
     """Every combination raises what JAX's make_staged_decoder_device
     raises on its counterpart engine (xla, pallas), and builds where it
-    builds, except dep_stride > 0 on the cuda engine: kernel B8, not
-    ported, NotImplementedError."""
+    builds, dep_stride > 0 on the cuda engine included (kernel B8)."""
     kw = dict(phase1_iters=3, schedule=schedule, dep_stride=dep_stride,
               popcount_sign=popcount_sign)
     want = None
@@ -182,8 +185,6 @@ def test_engine_options_raise_as_jax(engine, schedule, dep_stride,
                            **kw)
     except Exception as e:  # noqa: BLE001 — the type is what is compared
         want = type(e)
-    if want is None and dep_stride:
-        want = NotImplementedError
     if want is None:
         make_staged_decoder_device(wifi_code(), 8, engine=engine,
                                    device="cpu", **kw)

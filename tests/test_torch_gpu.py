@@ -168,3 +168,119 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         dec(torch.zeros(code.n, 2, device=cuda).t())     # not contiguous
     e, it, ok = dec(torch.zeros(0, code.n, device=cuda))
     assert e.shape == (0,)
+
+
+# ---- kernel B7, the phase-split pair (csrc/split.cu), and B8 ----
+
+def _finite_llr(n, snrs, per, seed, device):
+    """As _llr without the non-finite entries: the split decoder, as the
+    Pallas pair, does not sanitise them and the fused kernel does."""
+    rng = np.random.default_rng(seed)
+    rows = [-1.0 + np.sqrt(0.5 / 10 ** (s / 10)) *
+            rng.standard_normal((per, n)) for s in snrs]
+    return torch.from_numpy(np.concatenate(rows).astype(np.float32)).to(
+        device)
+
+
+SPLIT_CODES = [near_earth_code(), _random_code(7, 21, 2, 6),
+               wifi_code(1944, 1 / 2), wifi_code(1944, 5 / 6),
+               _high_degree_code()]
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+@pytest.mark.parametrize("code", SPLIT_CODES, ids=lambda c: c.name)
+def test_split_matches_plain_version_and_mono(cuda, code, store):
+    """Every word, converged or not: the split kernels, their plain version
+    and the fused kernel's min-sum flooding decode agree."""
+    from ldpc_tpu_torch.ops import cuda_split
+    llr = _finite_llr(code.n, (1.0, 2.5, 3.0, 3.4, 4.0), 128, seed=8,
+                      device=cuda)
+    dec = cuda_split.make_split_sweep_decoder(code, 20, store_dtype=store,
+                                              device=cuda)
+    before = dict(cuda_split.launches)
+    got = dec(llr)
+    for k in ("split_r", "split_c"):
+        assert cuda_split.launches[(k, store)] > before.get((k, store), 0)
+    assert 1 <= dec.host_reads <= 20
+    want = cuda_split.split_reference(llr, dec.plan, 20, store)
+    mono = make_static_sweep_decoder(code, 20, store_dtype=store,
+                                     device=cuda)(llr)
+    torch.cuda.synchronize()
+    for g, w, m in zip(got, want, mono):
+        assert torch.equal(g, w)
+        assert torch.equal(g, m)
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+def test_split_launches_match_their_plain_versions(cuda, store):
+    """One launch of split_r, then of split_c, on the same state as their
+    plain versions: every plane and latch equal."""
+    from ldpc_tpu_torch.ops import cuda_split
+    code = near_earth_code()
+    plan = DecodePlan.from_code(code)
+    llr = _finite_llr(code.n, (2.0, 3.0, 4.0), 64, seed=9, device=cuda)
+    t = cuda_static._RefTables(plan, cuda)
+    tables = torch.as_tensor(cuda_static.kernel_tables(plan), device=cuda)
+    s = cuda_split.SplitState.start(llr, plan, 10, store)
+    for it in range(3):      # a few plain iterations, so some words latch
+        s = cuda_split.split_c_reference(
+            cuda_split.split_r_reference(s, t, it), t)
+    n_ok = torch.zeros(11, dtype=torch.int32, device=cuda)
+    want = cuda_split.split_r_reference(s, t, 3)
+    cuda_split.launch("r", s, plan, tables, n_ok, 3)
+    torch.cuda.synchronize()
+    for name in ("m1", "m2", "am", "sp", "bits", "errors", "iters",
+                 "success"):
+        assert torch.equal(getattr(s, name), getattr(want, name)), name
+    assert int(n_ok[3]) == int(want.success.sum())
+    want = cuda_split.split_c_reference(s, t)
+    cuda_split.launch("c", s, plan, tables, n_ok)
+    torch.cuda.synchronize()
+    assert torch.equal(s.tot, want.tot)
+
+
+def test_split_decodes_a_code_the_fused_kernel_refuses(cuda):
+    """synthetic_qc_code(2048, 8, 24): one word's state (393,216 bytes in
+    bf16) exceeds a block's shared memory, so the fused kernel refuses it;
+    the split pair equals its plain version, failed words included."""
+    from ldpc_tpu_torch.codes import synthetic_qc_code
+    from ldpc_tpu_torch.ops import cuda_split
+    code = synthetic_qc_code(2048, 8, 24)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        make_static_sweep_decoder(code, 8, device=cuda)
+    llr = _finite_llr(code.n, (1.1, 4.0), 128, seed=10, device=cuda)
+    dec = cuda_split.make_split_sweep_decoder(code, 8, device=cuda)
+    got = dec(llr)
+    want = cuda_split.split_reference(llr, dec.plan, 8, chunk=64)
+    torch.cuda.synchronize()
+    assert 0 < int(got[2].sum()) < llr.shape[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_barrier_lowers_on_card(cuda):
+    assert cuda_static.barrier_lowers(cuda) is True
+    x = torch.randn(4096, device=cuda)
+    assert torch.equal(cuda_static.barrier_probe(x), x + x.abs())
+
+
+def test_dep_stride_decodes_as_zero_on_card(cuda):
+    code = near_earth_code()
+    llr = _llr(code.n, (3.0, 3.4), 256, seed=11, device=cuda)
+    want = make_staged_decoder_device(code, 50, phase1_iters=12,
+                                      redo_capacity=96, engine="cuda",
+                                      device=cuda)(llr)
+    got = make_staged_decoder_device(code, 50, phase1_iters=12,
+                                     redo_capacity=96, engine="cuda",
+                                     dep_stride=4, device=cuda)(llr)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["split", "barrier_probe"])
+def test_new_sources_build_with_a_ptxas_report(cuda, name):
+    from ldpc_tpu_torch.csrc import build, build_report
+    build(name)
+    ptxas = build_report(name)["ptxas"]
+    assert "Used" in ptxas and "registers" in ptxas
+    assert "spill" in ptxas

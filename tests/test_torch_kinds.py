@@ -127,14 +127,16 @@ def test_variant_parameters_reach_the_rebuild(kind):
 
 
 def test_wrapper_refuses_later_variants():
-    """What the port still refuses: kernel B8 (dep_stride > 0, which the
-    cuda engine's cascade refuses before it builds the wrapper), and what
-    the JAX kernel refuses too (sum-product with int8 state or the layered
-    schedule, unknown kinds and stores).  Layered, int8 and popcount_sign
-    build."""
+    """What the port refuses is what the JAX kernel refuses (sum-product
+    with int8 state or the layered schedule, unknown kinds and stores), and
+    dep_stride on the torch engine (ValueError, as on JAX's xla engine).
+    Layered, int8, popcount_sign and dep_stride > 0 (kernel B8: the barrier
+    probe on the card, then the dep_stride=0 decode) build."""
     code = wifi_code(1944, 1 / 2)
-    with pytest.raises(NotImplementedError, match="B8"):
-        make_staged_decoder_device(code, 4, engine="cuda", dep_stride=2,
+    make_staged_decoder_device(code, 4, phase1_iters=2, engine="cuda",
+                               dep_stride=2, device="cpu")
+    with pytest.raises(ValueError, match="levers"):
+        make_staged_decoder_device(code, 4, phase1_iters=2, dep_stride=2,
                                    device="cpu")
     with pytest.raises(ValueError, match="min-sum family"):
         make_static_sweep_decoder(code, 4, kind="sum-product",
