@@ -5,15 +5,17 @@ sub-packages mirror ``ldpc_tpu`` so each module's counterpart is easy to
 find:
 
   codes/   QC shift tables, the JSON code format, CCSDS near-earth, the
-           IEEE 802.11n n = 1944 family
-  ops/     decode plans; the decode CUDA kernel (``csrc/decode.cu``,
-           4 kinds x bf16/f32 state), its plain PyTorch versions and wrapper
-           (``ops/cuda_static.py``); the plain-torch decoder of the
-           ``"torch"`` engine (``ops/decoder.py``); the f64 oracle
+           IEEE 802.11n n = 1944 family, synthetic QC codes
+  ops/     decode plans; the fused decode kernel (``csrc/decode.cu``), its
+           plain PyTorch versions and wrapper (``ops/cuda_static.py``); the
+           phase-split pair (``csrc/split.cu``, ``ops/cuda_split.py``); the
+           plain-torch decoder of the ``"torch"`` engine
+           (``ops/decoder.py``); the f64 oracle
   sim/     BPSK/AWGN channel, Monte-Carlo sweeps (``evaluate_code``, the
            staged cascade), BER/FER statistics
   utils/   device selection
   csrc/    CUDA sources and their nvcc + ctypes build
+  scripts/ ``python -m ldpc_tpu_torch.scripts.split_ab``
   cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe``
 
 Entry points run on the card unless called with ``device="cpu"``.
@@ -31,4 +33,4 @@ Quick start (on the card)::
 
 __version__ = "0.2.0"
 
-__all__ = ["codes", "ops", "sim", "utils", "csrc"]
+__all__ = ["codes", "ops", "sim", "utils", "csrc", "scripts"]

@@ -329,7 +329,7 @@ def _syndrome_ok(tt: torch.Tensor, t: _RefTables) -> torch.Tensor:
 
 
 def _minsum_phase_a(tot, state: _MinSumState, t: _RefTables, kind: str,
-                   alpha: float, beta: float, popcount: bool):
+                    alpha: float, beta: float, popcount: bool):
     """Phase A of the min-sum family over all checks: returns per word
     whether the totals satisfy every check, and writes each check's new
     state, from the totals and its old state, into ``state``."""
@@ -340,7 +340,7 @@ def _minsum_phase_a(tot, state: _MinSumState, t: _RefTables, kind: str,
 
 
 def _minsum_phase_b(chan, state: _MinSumState, t: _RefTables, kind: str,
-                   alpha: float, beta: float, store: torch.dtype):
+                    alpha: float, beta: float, store: torch.dtype):
     """Phase B of the min-sum family: totals = -chan + each rebuilt c2v
     message, in column-slot order, rounded to the store."""
     g = t.chk_idx                                           # [n, dv]
@@ -504,7 +504,7 @@ def _lib() -> ctypes.CDLL:
         lib = load(_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.decode_launch.argtypes = [i, i, i, i, p, i, i, i, i, i, i, i,
-                                        i, i, p, i, f, f, p, p, p, p]
+                                      i, i, p, i, f, f, p, p, p, p]
         lib.decode_launch.restype = i
         _LIB = lib
     return _LIB

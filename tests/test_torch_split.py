@@ -13,6 +13,8 @@ runs the kernels, give ``split_reference`` again.  Tolerance: none.  Each
 JAX decode runs once per module.
 """
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from ldpc_tpu_torch.ops.cuda_static import (barrier_lowers, barrier_probe,
                                             flooding_reference,
                                             make_static_sweep_decoder)
 from ldpc_tpu_torch.ops.plan import DecodePlan
+from ldpc_tpu_torch.scripts import split_ab
 from ldpc_tpu_torch.sim.evaluate import (make_staged_decoder_device,
                                          make_staged_sweep_device)
 
@@ -256,9 +259,6 @@ def test_static_decoder_dep_stride_decodes_as_zero():
 def test_split_ab_on_cpu(monkeypatch, capsys):
     """The A/B script's protocol at a tiny size on the CPU (the plain
     versions): word-exact, one JSON summary line, no file written."""
-    import json
-
-    from ldpc_tpu_torch.scripts import split_ab
     monkeypatch.setenv("LDPC_TPU_PLATFORM", "cpu")
     summary = split_ab.main(["--code", "wifi", "--batch", "128", "--mi",
                              "4", "--trials", "1", "--snr", "2.0"])
