@@ -1,4 +1,4 @@
-"""Same-session A/B of the fused decoder and the phase-split decoder.
+"""One-process A/B of the fused decoder and the phase-split decoder.
 
 The counterpart of the JAX package's ``scripts/split_ab.py``, with the same
 arguments less ``--interpret``: the mono decoder is the cuda engine's fused
