@@ -7,9 +7,11 @@ Phases, each printing its elapsed seconds; any failure exits non-zero with
 no result line:
 
 1. card    the card's name and power limit (nvidia-smi) and torch's view.
-2. build   nvcc builds ldpc_tpu_torch/csrc/decode.cu, split.cu and
-           barrier_probe.cu, one process each, all started together
-           (ptxas report).
+2. build   nvcc builds ldpc_tpu_torch/csrc/decode.cu, split.cu,
+           barrier_probe.cu and microbench.cu, one process each, all
+           started together (ptxas report); phi's SASS instructions are
+           counted (ldpc_tpu_torch/scripts/phi_sass.py) for the sum-product
+           bounds.
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -70,11 +72,20 @@ no result line:
            words fail, against the plain version; (e) the main path's 3.4 dB
            batches again through a dep_stride=4 cascade (the barrier probe
            runs as it is built), every word equal, and barrier_lowers().
-12. the kernels line, the card line again, and the result line.
+12. microbench the kernel microbenchmark (B9, csrc/microbench.cu): (a) each
+           of the 7 probes against its plain version at K = 1 and 7, on one
+           tile and on the card-filling count of tiles: every element of the
+           final buffers equal, the sums within SUM_RTOL; (b)
+           ldpc_tpu_torch.scripts.kernel_microbench --quick (the probes'
+           slopes at one tile and at the card-filling count, and the fused
+           kernel's per-iteration slopes at 128 and 32,768 words, bf16 and
+           f32); (c) each probe timed at the card-filling count, K = 1,000,
+           beside its plain version, its bound and its shared-memory bound.
+13. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
-dep_stride replay of phase 11) clears the launch counts just before it
+dep_stride replay of phase 11, and the microbench script of phase 12) clears the launch counts just before it
 and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
@@ -90,7 +101,6 @@ from __future__ import annotations
 import collections
 import json
 import re
-import subprocess
 import sys
 import time
 import traceback
@@ -101,7 +111,7 @@ import torch
 from ldpc_tpu_torch import cli
 from ldpc_tpu_torch.codes import (QCCode, near_earth_code,
                                   synthetic_qc_code, wifi_code)
-from ldpc_tpu_torch.ops import cuda_split, cuda_static
+from ldpc_tpu_torch.ops import cuda_split, cuda_static, microbench
 from ldpc_tpu_torch.ops.cuda_split import (SplitState,
                                            make_split_sweep_decoder,
                                            split_c_reference,
@@ -119,9 +129,11 @@ from ldpc_tpu_torch.sim.evaluate import (StagedDecoder,
                                          evaluate_code,
                                          make_staged_decoder_device,
                                          make_staged_sweep_device, transmit)
-from ldpc_tpu_torch.scripts import split_ab
+from ldpc_tpu_torch.scripts import kernel_microbench, phi_sass, split_ab
 from ldpc_tpu_torch.sim.stats import BerStatistics, wilson_interval
 from ldpc_tpu_torch.utils.device import device_info
+from ldpc_tpu_torch.utils.profiling import (F32_OPS_PER_S, HBM_BYTES_PER_S,
+                                            smi_query)
 
 T0 = time.perf_counter()
 
@@ -218,23 +230,34 @@ GIANT_FAIL_SNR = 1.1
 DEP_STRIDE = 4
 PLAIN_CHUNK = 4096       # words per plain launch version (its memory peak)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor op/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# Phase 12.  (a) K values of the checks, and the sums' tolerance relative
+# to the sum of |values| of a tile, that of the CPU tests against JAX: the
+# two sums differ only in order, and a sequential sum of a tile differs
+# from a tree's by about 1e-5 of it (JAX's sum against torch's at K = 3:
+# 169,457.53 against 169,455.77, tests/test_torch_microbench.py)
+MB_CHECK_K = (1, 7)
+SUM_RTOL = 1e-4
+MB_ROW_K = 1000          # (c) the rows' K: the quick slope's first K
+MB_PATH = "microbench"
+MB_ARGS = ["--quick"]
+
+# The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py.
 # float32 operations per Tanner edge and iteration, (phase A, phase B).
 # min-sum: phase A 8 (old c2v: select, sign; v = t - c2v; |v|; two-min
 # compare, m2 min, m1 min; sign test), phase B 3 (select, sign, add);
 # normalized adds one multiply and offset a subtract and a max wherever a
 # message is rebuilt.  Sum-product: phase A 14 plus 2 phi (the rebuild:
 # sub, 2 clip, mul, neg, sign, mul; v: sub; |v|, 2 clip, mul, neg; S add;
-# sign test), phase B 8 plus 1 phi.  One phi is a tanhf and a logf, counted
-# as an estimate of the f32 instructions they compile to: 12 for tanhf (an
-# exp2 and a reciprocal with their range reduction, or a short polynomial)
-# and 18 for logf (range reduction and a degree-8 polynomial).
-PHI_OPS = 12 + 18
+# sign test), phase B 8 plus 1 phi.  One phi is the SASS instructions that
+# csrc/decode.cu's phi compiles to, counted by
+# ldpc_tpu_torch/scripts/phi_sass.py: phase 2 counts them on the card's
+# toolkit, and the bounds use that count.
+def sum_product_ops(phi_ops: int) -> tuple[int, int]:
+    return (14 + 2 * phi_ops, 8 + phi_ops)
+
+
 OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
-       "offset-min-sum": (10, 5),
-       "sum-product": (14 + 2 * PHI_OPS, 8 + PHI_OPS)}
+       "offset-min-sum": (10, 5), "sum-product": None}
 # Layered (pallas layered_body), per edge: the syndrome pass 1 (sign test)
 # in every sweep; in a sweep that updates, the row update as flooding phase
 # A (8) and the delta: two rebuilt messages (select, sign; +1 normalized,
@@ -255,6 +278,9 @@ TPU_SPLIT = {"r": ("ldpc_tpu/ops/pallas_split.py:204",
 TPU_PROBE = ("ldpc_tpu/ops/pallas_static.py:142",
              "B8 ldpc_tpu/ops/pallas_static.py:128 _barrier_lowers probe")
 TPU_CALL = "ldpc_tpu/ops/pallas_static.py:621"
+MB_SOURCE = "ldpc_tpu_torch/csrc/microbench.cu"
+TPU_MB = ("scripts/kernel_microbench.py:63",
+          "B9 scripts/kernel_microbench.py:46 _build_probe")
 TPU_NEW = {"layered": "B3 ldpc_tpu/ops/pallas_static.py:566-599 layered_body",
            "int8": "B5 ldpc_tpu/ops/pallas_static.py:195-223 _st/_ld/_st_raw",
            "popcount": "B6 ldpc_tpu/ops/pallas_static.py:364-377 "
@@ -317,11 +343,7 @@ def timed_once(fn, dev: torch.device):
 
 
 def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
+    return ", ".join(smi_query("name", "power.limit"))
 
 
 def llr_batch(code: QCCode, b: int, snr: float, gen: torch.Generator, dev,
@@ -340,12 +362,14 @@ def clear_launches() -> None:
     """Zero every kernel's launch count, just before a path runs."""
     cuda_static.launches.clear()
     cuda_split.launches.clear()
+    microbench.launches.clear()
 
 
 def record_path(path: str) -> dict:
     """The launch counts of the path just run (cleared just before it), kept
     under its name for the kernels line."""
-    got = {**cuda_static.launches, **cuda_split.launches}
+    got = {**cuda_static.launches, **cuda_split.launches,
+           **{("microbench", n): c for n, c in microbench.launches.items()}}
     PATH_LAUNCHES[path] = got
     return got
 
@@ -406,7 +430,7 @@ def phase_card(dev) -> str:
 
 def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
-    sources = ("decode", "split", "barrier_probe")
+    sources = ("decode", "split", "barrier_probe", "microbench")
     build(*sources)
     reps = {}
     for name in sources:
@@ -422,6 +446,11 @@ def phase_build() -> dict:
             f"{min(regs, default=0)}-{max(regs, default=0)} registers a "
             f"thread, {sum(spills)} bytes of spills, largest stack frame "
             f"{max(stack, default=0)} bytes")
+    phi = phi_sass.count()
+    OPS["sum-product"] = sum_product_ops(phi["instructions"])
+    log("build", f"phi: {phi['instructions']} SASS instructions "
+        f"({phi['f32_pipe']} on the float32 pipe; {phi['nvcc']}): "
+        f"{phi['by_opcode']}")
     return reps
 
 
@@ -1280,6 +1309,85 @@ def phase_dep_stride(dev, code, main: dict) -> dict:
     return probe
 
 
+def phase_microbench(dev) -> dict:
+    """(a) each probe against its plain version; (b) the probe script's
+    quick run, the driving path; (c) each probe timed beside its plain
+    version and its bounds.  Returns the kernels line's rows' numbers."""
+    rows = {}
+    for name in microbench.NAMES:
+        _, n_bufs, r, dtype = microbench.PROBES[name]
+        fill = microbench.fill_tiles(name, dev)
+        row = rows[name] = {"tiles": fill, "max_abs_err": 0.0,
+                            "sum_rel_err": 0.0}
+        for tiles in (1, fill):
+            for k in MB_CHECK_K:
+                x = microbench.input_tile(n_bufs, r, dtype, k, tiles, dev)
+                ks, kb = microbench.probe(name, x, k)
+                ps, pb = microbench.probe_reference(name, x, k)
+                sync(dev)
+                err = float((kb.float() - pb.float()).abs().max())
+                scale = pb[:, 0].float().abs().sum(dim=(-2, -1))
+                rel = float(((ks - ps).abs() / scale).max())
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["sum_rel_err"] = max(row["sum_rel_err"], rel)
+                if not torch.equal(kb, pb) or rel > SUM_RTOL:
+                    raise AssertionError(
+                        f"microbench {name}, {tiles} tiles, K {k}: buffers "
+                        f"differ by {err}, sums by {rel:.3g} of the sum of "
+                        "|values|")
+        log("12microbench", f"(a) {name}: buffers equal to the plain "
+            f"version at K {MB_CHECK_K} on 1 and {fill} tiles; sums within "
+            f"{row['sum_rel_err']:.3g} of the sum of |values|")
+    clear_launches()
+    res = kernel_microbench.main(MB_ARGS)
+    got = record_path(MB_PATH)
+    missing = [n for n in microbench.NAMES if not got.get(("microbench", n))]
+    missing += [s for s in ("bfloat16", "float32")
+                if not got.get(key("min-sum", s))]
+    if missing:
+        raise AssertionError(f"the microbench script did not launch "
+                             f"{missing}: {got}")
+    for n in microbench.NAMES:
+        log("12microbench", f"(b) {n}: {res[n]:.3f} ns a run on 1 tile, "
+            f"{res['fill'][n]['ns']:.3f} ns on {res['fill'][n]['tiles']} "
+            f"({res['fill'][n]['ps_per_element']:.4f} ps an element)")
+    for k, us in res.items():
+        if k.startswith("decoder_us_per_iter_"):
+            log("12microbench", f"(b) {k}: {us:.3f} us an iteration")
+    log("12microbench", f"(b) op-count model: {json.dumps(res['model'])}; "
+        f"launches {got}")
+    smem_rate = res.get("smem_bytes_per_s")
+    for name in microbench.NAMES:
+        _, n_bufs, r, dtype = microbench.PROBES[name]
+        row = rows[name]
+        tiles = row["tiles"]
+        x = microbench.input_tile(n_bufs, r, dtype, 0, tiles, dev)
+        ms = time_ms(lambda: microbench.probe(name, x, MB_ROW_K), dev,
+                     reps=KERNEL_REPS)
+        _, plain_ms = timed_once(
+            lambda: microbench.probe_reference(name, x, MB_ROW_K), dev)
+        elems = tiles * r * microbench.LANES
+        t_bytes = (2 * x.numel() * x.element_size() + 4 * tiles) / \
+            HBM_BYTES_PER_S * 1e3
+        t_ops = (microbench.OPS_PER_ELEMENT[name] * MB_ROW_K * elems /
+                 F32_OPS_PER_S * 1e3)
+        smem = microbench.SMEM_BYTES_PER_ELEMENT[name] * MB_ROW_K * elems
+        row.update(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            smem_bytes_moved=smem,
+            smem_bound_ms=smem / smem_rate * 1e3 if smem_rate else None,
+            slope_ns_one_tile=res[name], slope_ns_fill=res["fill"][name]["ns"],
+            ps_per_element_fill=res["fill"][name]["ps_per_element"],
+            shape=f"[{tiles}, {n_bufs}, {r}, 128] {str(dtype)[6:]}, K "
+                  f"{MB_ROW_K}")
+        log("12microbench", f"(c) {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), shared-memory bound "
+            f"{row['smem_bound_ms']} ms at {row['shape']}")
+    return {"rows": rows, "script": res}
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -1332,6 +1440,7 @@ def run(dev: torch.device) -> dict:
     split = phase_split(dev, code, gen)
     split["giant"] = phase_giant(dev, gen)
     split["probe"] = phase_dep_stride(dev, code, main)
+    mb = phase_microbench(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -1385,12 +1494,20 @@ def run(dev: torch.device) -> dict:
         "replaces": TPU_PROBE[0], "tpu_kernel": TPU_PROBE[1],
         **launch_row(DEP_PATH, "barrier_probe"), "library_ms": None,
         **split["probe"]})
+    for name, v in mb["rows"].items():
+        rows.append({
+            "name": f"microbench[{name}]", "route": "cuda",
+            "source": MB_SOURCE, "replaces": TPU_MB[0],
+            "tpu_kernel": f"{TPU_MB[1]}, body {name}",
+            **launch_row(MB_PATH, ("microbench", name)), "library_ms": None,
+            **v})
     missing = [(r["name"], r["path"]) for r in rows if r["launches"] == 0]
     if missing:
         raise AssertionError(f"no launch on the driving path: {missing}")
     kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
-    return {"smi": smi, "kernels": kernels, "main": main, "split": split}
+    return {"smi": smi, "kernels": kernels, "main": main, "split": split,
+            "microbench": mb}
 
 
 def main() -> int:

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.codes import QCCode, near_earth_code, wifi_code
-from ldpc_tpu_torch.ops import cuda_static
+from ldpc_tpu_torch.ops import cuda_static, microbench
 from ldpc_tpu_torch.ops.cuda_static import (KINDS, STORES,
                                             flooding_reference,
                                             layered_reference,
@@ -277,10 +277,58 @@ def test_dep_stride_decodes_as_zero_on_card(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", ["split", "barrier_probe"])
+@pytest.mark.parametrize("name", ["split", "barrier_probe", "microbench"])
 def test_new_sources_build_with_a_ptxas_report(cuda, name):
     from ldpc_tpu_torch.csrc import build, build_report
     build(name)
     ptxas = build_report(name)["ptxas"]
     assert "Used" in ptxas and "registers" in ptxas
     assert "spill" in ptxas
+
+
+@pytest.mark.parametrize("tiles", [1, 5, "fill"], ids=str)
+@pytest.mark.parametrize("name", microbench.NAMES)
+def test_microbench_probe_matches_plain_version(cuda, name, tiles):
+    """Kernel B9: each probe's final buffers equal its plain version's on
+    every element, at K = 1 and 7, on one tile, a few and the card-filling
+    count; the sums within 1e-4 of the sum of |values| (another order)."""
+    _, n_bufs, rows, dtype = microbench.PROBES[name]
+    g = microbench.fill_tiles(name, cuda) if tiles == "fill" else tiles
+    for k in (1, 7):
+        x = microbench.input_tile(n_bufs, rows, dtype, k, g, cuda)
+        before = microbench.launches[name]
+        sums, bufs = microbench.probe(name, x, k)
+        assert microbench.launches[name] == before + 1
+        want_sums, want = microbench.probe_reference(name, x, k)
+        torch.cuda.synchronize()
+        assert bufs.dtype == dtype and bufs.shape == x.shape
+        assert torch.equal(bufs, want)
+        scale = want[:, 0].float().abs().sum(dim=(-2, -1))
+        assert bool(((sums - want_sums).abs() <= 1e-4 * scale).all())
+
+
+def test_microbench_rejects_what_it_does_not_take(cuda, monkeypatch):
+    x = microbench.input_tile(1, 512, torch.float32, 0, 1, cuda)
+    with pytest.raises(TypeError):
+        microbench.probe("baseline+f32_to_bf16", x, 1)
+    with pytest.raises(ValueError):
+        microbench.probe("twomin_edge_no_rot", x, 1)
+    assert microbench.fill_tiles("abs_add_baseline", cuda) >= 132 // 8
+
+    class Refused:                 # a launch the card refuses raises
+        def microbench_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(microbench, "_lib", Refused)
+    before = microbench.launches["abs_add_baseline"]
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        microbench.probe("abs_add_baseline", x, 1)
+    assert microbench.launches["abs_add_baseline"] == before
+
+
+def test_phi_sass_counts_phi(cuda):
+    from ldpc_tpu_torch.scripts import phi_sass
+    res = phi_sass.count()
+    assert res["instructions"] > 0 and res["f32_pipe"] > 0
+    assert res["kernel_instructions"]["phi_only"] > \
+        res["kernel_instructions"]["copy_only"]

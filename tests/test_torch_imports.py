@@ -16,7 +16,9 @@ import torch
 from ldpc_tpu_torch import cli
 from ldpc_tpu_torch.codes import near_earth_code, wifi_code
 from ldpc_tpu_torch.ops.cuda_static import make_static_sweep_decoder
+from ldpc_tpu_torch.ops import microbench
 from ldpc_tpu_torch.ops.decoder import decode
+from ldpc_tpu_torch.scripts import kernel_microbench
 from ldpc_tpu_torch.sim.channel import (epsilon_probe, snr_db_to_sigma,
                                         transmit_zero_codeword)
 from ldpc_tpu_torch.sim.evaluate import (evaluate_code,
@@ -25,6 +27,7 @@ from ldpc_tpu_torch.sim.evaluate import (evaluate_code,
                                          make_staged_sweep_device,
                                          sweep_step)
 from ldpc_tpu_torch.utils.device import default_device
+from ldpc_tpu_torch.utils.profiling import ThroughputTimer, device_roofline
 
 # xdist runs several workers on the machine's cores: one intra-op
 # thread each, or their thread pools contend and the CPU tests crawl
@@ -86,7 +89,10 @@ def test_port_and_chip_smoke_import_without_jax():
               "ldpc_tpu_torch.csrc", "ldpc_tpu_torch.codes.ccsds",
               "ldpc_tpu_torch.codes.wifi", "ldpc_tpu_torch.ops.decoder",
               "ldpc_tpu_torch.ops.oracle", "ldpc_tpu_torch.sim.stats",
-              "ldpc_tpu_torch.cli"):
+              "ldpc_tpu_torch.cli", "ldpc_tpu_torch.ops.microbench",
+              "ldpc_tpu_torch.utils.profiling",
+              "ldpc_tpu_torch.scripts.kernel_microbench",
+              "ldpc_tpu_torch.scripts.phi_sass"):
         assert m in res["modules"]
 
 
@@ -117,7 +123,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: epsilon_probe(16),
              lambda: cli.main(["probe", "--iterations", "4"]),
              lambda: transmit_zero_codeword(2, 16, 3.0),
-             lambda: snr_db_to_sigma(3.0)]
+             lambda: snr_db_to_sigma(3.0),
+             lambda: kernel_microbench.main(["--quick"]),
+             lambda: microbench.fill_tiles("abs_add_baseline"),
+             lambda: microbench.input_tile(1, 512, torch.float32),
+             lambda: device_roofline(),
+             lambda: ThroughputTimer()]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
