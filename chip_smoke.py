@@ -9,9 +9,9 @@ no result line:
 1. card    the card's name and power limit (nvidia-smi) and torch's view.
 2. build   nvcc builds ldpc_tpu_torch/csrc/decode.cu, split.cu,
            barrier_probe.cu and microbench.cu, one process each, all
-           started together (ptxas report); phi's SASS instructions are
-           counted (ldpc_tpu_torch/scripts/phi_sass.py) for the sum-product
-           bounds.
+           started together (ptxas report); phi's float32 operations are
+           counted from its SASS (ldpc_tpu_torch/scripts/phi_sass.py) for
+           the sum-product bounds.
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -75,12 +75,16 @@ no result line:
 12. microbench the kernel microbenchmark (B9, csrc/microbench.cu): (a) each
            of the 7 probes against its plain version at K = 1 and 7, on one
            tile and on the card-filling count of tiles: every element of the
-           final buffers equal, the sums within SUM_RTOL; (b)
-           ldpc_tpu_torch.scripts.kernel_microbench --quick (the probes'
-           slopes at one tile and at the card-filling count, and the fused
-           kernel's per-iteration slopes at 128 and 32,768 words, bf16 and
-           f32); (c) each probe timed at the card-filling count, K = 1,000,
-           beside its plain version, its bound and its shared-memory bound.
+           final buffers equal, the sums within SUM_RTOL; the fused
+           kernel at each of the script's decoder shapes (128 and 32,768
+           near-earth words at 0 dB, 40 iterations, bf16 and f32: the
+           script's first trial's words) against its plain version, every
+           word; (b) ldpc_tpu_torch.scripts.kernel_microbench --quick (the
+           probes' slopes at one tile and at the card-filling count, and
+           the fused kernel's per-iteration slopes at 128 and 32,768 words,
+           bf16 and f32); (c) each probe timed at the card-filling count,
+           K = 1,000, beside its plain version, its bound and its
+           shared-memory bound.
 13. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
@@ -133,7 +137,7 @@ from ldpc_tpu_torch.scripts import kernel_microbench, phi_sass, split_ab
 from ldpc_tpu_torch.sim.stats import BerStatistics, wilson_interval
 from ldpc_tpu_torch.utils.device import device_info
 from ldpc_tpu_torch.utils.profiling import (F32_OPS_PER_S, HBM_BYTES_PER_S,
-                                            smi_query)
+                                            smi_query, time_ms, timed_once)
 
 T0 = time.perf_counter()
 
@@ -241,17 +245,19 @@ MB_ROW_K = 1000          # (c) the rows' K: the quick slope's first K
 MB_PATH = "microbench"
 MB_ARGS = ["--quick"]
 
-# The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py.
+# The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
+# operations over the float32 peak, which counts a fused multiply-add as 2
+# and every other float32 operation as 1, as the counts below do.
 # float32 operations per Tanner edge and iteration, (phase A, phase B).
 # min-sum: phase A 8 (old c2v: select, sign; v = t - c2v; |v|; two-min
 # compare, m2 min, m1 min; sign test), phase B 3 (select, sign, add);
 # normalized adds one multiply and offset a subtract and a max wherever a
 # message is rebuilt.  Sum-product: phase A 14 plus 2 phi (the rebuild:
 # sub, 2 clip, mul, neg, sign, mul; v: sub; |v|, 2 clip, mul, neg; S add;
-# sign test), phase B 8 plus 1 phi.  One phi is the SASS instructions that
-# csrc/decode.cu's phi compiles to, counted by
-# ldpc_tpu_torch/scripts/phi_sass.py: phase 2 counts them on the card's
-# toolkit, and the bounds use that count.
+# sign test), phase B 8 plus 1 phi.  One phi is the float32 operations of
+# the SASS that csrc/decode.cu's phi compiles to (an FFMA 2; what runs for
+# some arguments only left out), counted by ldpc_tpu_torch/scripts/phi_sass.py:
+# phase 2 counts them on the card's toolkit, and the bounds use that count.
 def sum_product_ops(phi_ops: int) -> tuple[int, int]:
     return (14 + 2 * phi_ops, 8 + phi_ops)
 
@@ -303,43 +309,6 @@ def log(phase: str, msg: str) -> None:
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def time_ms(fn, dev: torch.device, reps: int = 1) -> float:
-    """Median milliseconds of ``reps`` calls, each timed alone with CUDA
-    events on the card.  An untimed call queued ahead of each keeps the
-    card busy while the host launches the timed one, so the host's cost of
-    a launch is not counted."""
-    if dev.type != "cuda":
-        fn()
-        return float(np.median([timed_once(fn, dev)[1] for _ in range(reps)]))
-    times = []
-    for _ in range(reps):
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize(dev)
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
-
-
-def timed_once(fn, dev: torch.device):
-    """(result, milliseconds) of one call, CUDA events on the card."""
-    sync(dev)
-    if dev.type != "cuda":
-        t = time.perf_counter()
-        out = fn()
-        return out, (time.perf_counter() - t) * 1e3
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return out, start.elapsed_time(stop)
 
 
 def smi_line() -> str:
@@ -447,9 +416,10 @@ def phase_build() -> dict:
             f"thread, {sum(spills)} bytes of spills, largest stack frame "
             f"{max(stack, default=0)} bytes")
     phi = phi_sass.count()
-    OPS["sum-product"] = sum_product_ops(phi["instructions"])
-    log("build", f"phi: {phi['instructions']} SASS instructions "
-        f"({phi['f32_pipe']} on the float32 pipe; {phi['nvcc']}): "
+    OPS["sum-product"] = sum_product_ops(phi["flops"])
+    log("build", f"phi: {phi['flops']} float32 operations for every "
+        f"argument ({phi['predicated_flops']} more predicated, for some; "
+        f"{phi['instructions']} SASS instructions; {phi['nvcc']}): "
         f"{phi['by_opcode']}")
     return reps
 
@@ -1338,6 +1308,25 @@ def phase_microbench(dev) -> dict:
         log("12microbench", f"(a) {name}: buffers equal to the plain "
             f"version at K {MB_CHECK_K} on 1 and {fill} tiles; sums within "
             f"{row['sum_rel_err']:.3g} of the sum of |values|")
+    # the fused kernel at the script's decoder shapes, every word
+    code = near_earth_code()
+    plan = DecodePlan.from_code(code)
+    mi = max(kernel_microbench.DECODER_ITERS)
+    for store in kernel_microbench.DECODER_STORES:
+        for words in kernel_microbench.DECODER_WORDS:
+            llr = kernel_microbench.decoder_input(words, mi, 0, dev)
+            kern = make_static_sweep_decoder(code, mi, store_dtype=store,
+                                             device=dev)(llr)
+            plain = flooding_reference(llr, plan, mi, store_dtype=store)
+            sync(dev)
+            c = compare(kern, plain)
+            log("12microbench", f"(a) fused {store}, {words} words 0 dB {mi} "
+                f"it: {c['mismatched']} words differ from the plain "
+                f"version, converged {int(kern[2].sum())}/{words}")
+            if c["mismatched"]:
+                raise AssertionError(f"fused {store} at {words} words, 0 dB: "
+                                     f"{c['mismatched']} words differ from "
+                                     "the plain version")
     clear_launches()
     res = kernel_microbench.main(MB_ARGS)
     got = record_path(MB_PATH)

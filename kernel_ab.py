@@ -5,19 +5,19 @@ turn, on the same LLRs.
     python3 kernel_ab.py ROOT [ROOT ...]
 
 Each ROOT is a directory that holds an ``ldpc_tpu_torch`` package (``.``
-for this checkout).  Each root runs in a process of its own, in the order
-given (give A B B A to see drift over the call).  It builds the kernel,
-then times each case with CUDA events: the median of REPS calls after one
-warm call.  The cases are the near-earth stage-1 shapes that chip_smoke.py
-drives: 32,768 words at 3.4 dB; min-sum bf16 flooding at 12 iterations,
-with the stored sign and with popcount_sign; layered bf16 at 6 sweeps, with
-both signs; int8 flooding at 12 iterations; and the phase-split pair
-(``ops/cuda_split.py``) at 12 iterations in bf16 and f32.  It prints one
-JSON line per root.  The line holds the build's seconds, the registers
-ptxas gave each kernel instance, each case's ms, and a hash of each case's
-outputs (the
-same across roots when their decodes agree).  It needs one card; it exits
-non-zero without one.
+for this checkout) that has ``utils/profiling.time_ms``.  Each root runs in
+a process of its own, in the order given (give A B B A to see drift over
+the call).  It builds the kernel, then times each case with that root's
+``time_ms``: the median of REPS calls, each timed alone with CUDA events
+behind an untimed call.  The cases are the near-earth stage-1 shapes that
+chip_smoke.py drives: 32,768 words at 3.4 dB; min-sum bf16 flooding at 12
+iterations, with the stored sign and with popcount_sign; layered bf16 at 6
+sweeps, with both signs; int8 flooding at 12 iterations; and the
+phase-split pair (``ops/cuda_split.py``) at 12 iterations in bf16 and f32.
+It prints one JSON line per root.  The line holds the build's seconds, the
+registers ptxas gave each kernel instance, each case's ms, and a hash of
+each case's outputs (the same across roots when their decodes agree).  It
+needs one card; it exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -74,7 +74,6 @@ def registers(ptxas: str) -> dict[str, int]:
 
 def child(root: str) -> dict:
     sys.path.insert(0, root)
-    import numpy as np
     import torch
 
     from ldpc_tpu_torch.codes import near_earth_code
@@ -82,6 +81,7 @@ def child(root: str) -> dict:
     from ldpc_tpu_torch.ops.cuda_split import make_split_sweep_decoder
     from ldpc_tpu_torch.ops.cuda_static import make_static_sweep_decoder
     from ldpc_tpu_torch.sim.evaluate import transmit
+    from ldpc_tpu_torch.utils.profiling import time_ms
 
     dev = torch.device("cuda", 0)
     build("decode", "split")
@@ -99,19 +99,9 @@ def child(root: str) -> dict:
                 else make_static_sweep_decoder)
         dec = make(code, iters, device=dev, **opts)
         res = dec(llr)
-        times = []
-        for _ in range(REPS):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            dec(llr)
-            stop.record()
-            torch.cuda.synchronize(dev)
-            times.append(start.elapsed_time(stop))
         digest = hashlib.sha256(b"".join(
             x.cpu().numpy().tobytes() for x in res)).hexdigest()[:16]
-        out["cases"][name] = {"ms": float(np.median(times)),
-                              "ms_min": min(times), "ms_max": max(times),
+        out["cases"][name] = {"ms": time_ms(lambda: dec(llr), dev, REPS),
                               "iterations": iters, "outputs": digest}
     return out
 

@@ -21,14 +21,13 @@ import collections
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from ..utils.device import resolve_device
 
 __all__ = ["NAMES", "PROBES", "OPS_PER_ELEMENT", "SMEM_BYTES_PER_ELEMENT",
            "launches", "probe", "probe_reference", "input_tile",
-           "source_rows", "fill_tiles"]
+           "fill_tiles"]
 
 LANES = 128        # columns of a tile
 STRIP = 16         # columns a block of the kernel holds
@@ -117,23 +116,6 @@ def input_tile(n_bufs: int, rows: int, dtype, t: int = 0, tiles: int = 1,
     numel = tiles * n_bufs * rows * LANES
     x = (torch.arange(numel, dtype=torch.int64, device=dev) % 7 - 3 + t)
     return x.to(torch.float32).to(dtype).reshape(tiles, n_bufs, rows, LANES)
-
-
-def source_rows(name: str) -> np.ndarray:
-    """The row that each output row of a rotating probe reads in the kernel,
-    computed as ``csrc/microbench.cu``'s ``source_row`` computes it
-    (``j = i + s; if (j >= z) j -= z``); the identity for the other
-    probes."""
-    body, _, rows, _ = _spec(name)
-    i = np.arange(rows)
-    if body == 3:
-        z, s = Z, SHIFT
-    elif body in (1, 2):
-        z, s = rows, rows - SHIFT
-    else:
-        return i
-    j = i + s
-    return np.where(j >= z, j - z, j)
 
 
 def _abs_add(x: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,9 @@ On the card::
 
 It prints one JSON line, with the card's name and power limit, and writes
 it to ``--out`` only when given one.  ``LDPC_TPU_PLATFORM=cpu`` runs it on
-the CPU with the plain versions (host clock; no device number), e.g.
-``--k 2,5 --tiles 1,2 --decoder-words 2``.
+the CPU with the plain versions (host clock; no device number).  The K
+pairs (``K_FULL``, ``K_QUICK``), the tile counts (``TILES``) and the
+decoder's word counts (``DECODER_WORDS``) are module constants.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 import torch
 
@@ -49,39 +49,21 @@ from ..ops.microbench import (LANES, NAMES, PROBES, SMEM_BYTES_PER_ELEMENT,
                               fill_tiles, input_tile, probe)
 from ..sim.evaluate import transmit
 from ..utils.device import resolve_device
-from ..utils.profiling import smem_bytes_per_s, smi_query
+from ..utils.profiling import smem_bytes_per_s, smi_query, timed_once
 
 TRIALS = 5
+K_FULL = (2000, 42000)   # the two K values of a slope
+K_QUICK = (1000, 11000)  # with --quick
+TILES = (1, "fill")      # tile counts G; "fill": the card-filling G
 DECODER_TRIALS = 4
 DECODER_ITERS = (10, 40)
 DECODER_STORES = ("bfloat16", "float32")
 MAIN_WORDS = 32768
+DECODER_WORDS = (128, MAIN_WORDS)
 # the op-count model's primitives: the rotation's gather (mod-511 less the
 # baseline), the phase-A fold and the phase-B rebuild
 GATHER, BASE = "baseline+mod511_rot", "abs_add_baseline"
 FOLD, REBUILD = "twomin_edge_no_rot", "recon_no_rot"
-
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def _time_call(fn, dev) -> float:
-    """Seconds of one call: CUDA events on the card, the host clock on the
-    CPU."""
-    _sync(dev)
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(stop) / 1e3
 
 
 def _best(make_input, run, dev, trials: int) -> float:
@@ -91,7 +73,7 @@ def _best(make_input, run, dev, trials: int) -> float:
     for t in range(trials):
         x = make_input(t)
         run(x)
-        best = min(best, _time_call(lambda: run(x), dev))
+        best = min(best, timed_once(lambda: run(x), dev)[1] / 1e3)
     return best
 
 
@@ -108,6 +90,14 @@ def slope_ns(name: str, k1: int, k2: int, tiles: int, dev,
     return (t2 - t1) / (k2 - k1) * 1e9
 
 
+def decoder_input(words: int, max_iters: int, t: int, dev) -> torch.Tensor:
+    """The LLRs of trial ``t`` of the ``max_iters`` decode: ``words``
+    near-earth words at 0 dB."""
+    gen = torch.Generator(device=dev).manual_seed(100 * max_iters + t)
+    snr = torch.zeros(words, dtype=torch.float32, device=dev)
+    return transmit(near_earth_code().n, snr, generator=gen)[0]
+
+
 def decoder_slope_us(store: str, words: int, dev, iters=DECODER_ITERS,
                      trials: int = DECODER_TRIALS) -> float:
     """Microseconds per flooding iteration of the fused kernel on
@@ -117,13 +107,8 @@ def decoder_slope_us(store: str, words: int, dev, iters=DECODER_ITERS,
     for mi in iters:
         dec = make_static_sweep_decoder(code, mi, store_dtype=store,
                                         device=dev)
-
-        def make(t, mi=mi):
-            gen = torch.Generator(device=dev).manual_seed(100 * mi + t)
-            snr = torch.zeros(words, dtype=torch.float32, device=dev)
-            return transmit(code.n, snr, generator=gen)[0]
-
-        times[mi] = _best(make, dec, dev, trials)
+        times[mi] = _best(lambda t, mi=mi: decoder_input(words, mi, t, dev),
+                          dec, dev, trials)
     lo, hi = iters
     return (times[hi] - times[lo]) / (hi - lo) * 1e6
 
@@ -132,10 +117,6 @@ def decoder_key(store: str, words: int) -> str:
     """The result's key of a decoder slope: the JAX key at 128 words."""
     key = f"decoder_us_per_iter_{store}"
     return key if words == 128 else f"{key}_{words}"
-
-
-def _ints(text: str) -> tuple[int, ...]:
-    return tuple(int(v) for v in text.split(","))
 
 
 def _card(dev) -> dict:
@@ -176,12 +157,6 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--skip-decoder", action="store_true")
     ap.add_argument("--skip-primitives", action="store_true")
-    ap.add_argument("--k", default=None,
-                    help="the two K values (default 2000,42000; --quick "
-                         "1000,11000)")
-    ap.add_argument("--tiles", default="1,fill",
-                    help="tile counts G, 'fill' for the card-filling G")
-    ap.add_argument("--decoder-words", default=f"128,{MAIN_WORDS}")
     ap.add_argument("--out", default=None,
                     help="also write the result to this JSON file")
     args = ap.parse_args(argv)
@@ -189,8 +164,7 @@ def main(argv: list[str] | None = None) -> dict:
     dev = resolve_device(_device())
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    k1, k2 = (_ints(args.k) if args.k else
-              (1000, 11000) if args.quick else (2000, 42000))
+    k1, k2 = K_QUICK if args.quick else K_FULL
     results: dict = {**_card(dev), "tile": [PROBES[BASE][2], LANES],
                      "k": [k1, k2], "trials": TRIALS}
 
@@ -198,8 +172,8 @@ def main(argv: list[str] | None = None) -> dict:
         results["fill"] = {}
         for name in NAMES:
             rows = PROBES[name][2]
-            for spec in args.tiles.split(","):
-                tiles = fill_tiles(name, dev) if spec == "fill" else int(spec)
+            for spec in TILES:
+                tiles = fill_tiles(name, dev) if spec == "fill" else spec
                 ns = slope_ns(name, k1, k2, tiles, dev)
                 per = ns * 1e3 / (tiles * rows * LANES)
                 row = {"tiles": tiles, "ns": ns, "ps_per_element": per}
@@ -216,17 +190,16 @@ def main(argv: list[str] | None = None) -> dict:
 
     if not args.skip_decoder:
         for store in DECODER_STORES:
-            for words in _ints(args.decoder_words):
+            for words in DECODER_WORDS:
                 us = decoder_slope_us(store, words, dev)
                 results[decoder_key(store, words)] = us
                 print(f"decoder {store} flooding, {words} words: {us:.3f} "
                       f"us/iter ({us * 1e3 / words:.3f} ns/word-iter)",
                       file=sys.stderr, flush=True)
 
-    words = _ints(args.decoder_words)[-1]
     if results.get("fill") and all(n in results["fill"] for n in
                                    (GATHER, BASE, FOLD, REBUILD)):
-        results["model"] = model(results, words)
+        results["model"] = model(results, DECODER_WORDS[-1])
     print(json.dumps(results), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,5 +1,5 @@
-"""Count the SASS instructions of the fused kernel's ``phi`` on the card's
-toolkit.
+"""Count the float32 operations of the fused kernel's ``phi`` in its SASS,
+on the card's toolkit.
 
 ``csrc/decode.cu``'s device function ``phi(x) = -logf(tanhf(x * 0.5f))``
 is inlined wherever sum-product uses it, so this script compiles it alone:
@@ -7,17 +7,26 @@ the function's text, cut from ``decode.cu``, into a kernel
 ``y[k] = phi(x[k])`` beside a kernel ``y[k] = x[k]``, both with the fused
 kernel's ``nvcc`` flags for ``sm_90a``, then reads both with
 ``cuobjdump -sass``.  ``phi``'s count is the difference of the two kernels'
-instruction counts, NOPs left out: a static count of every instruction
-the function compiles to, its special-case branches included.  The bounds
-of the sum-product rows of ``chip_smoke.py`` count one phi as that many
-operations.
+counts, NOPs left out.  Its float32 operations are in the unit of the
+card's float32 peak (``utils/profiling.F32_OPS_PER_S``, which counts a
+fused multiply-add as 2): an FFMA counts 2, every other float32 arithmetic
+instruction (add, multiply, compare, select, min/max, the special-function
+unit) 1, conversions and moves 0.  Only the instructions that run for
+every argument count: a predicated instruction runs for some arguments
+only (with CUDA 12.9: tanhf's small-argument polynomial, a denormal
+rescale, logf of an infinite argument) and is reported apart, so the count
+is the least that any argument needs, as a bound wants.  ``phi`` compiles
+to straight-line code; where it branches, the count raises, since it would
+no longer be one path.  The bounds of the sum-product rows of
+``chip_smoke.py`` count one phi as that many operations.
 
 On the machine with the toolkit::
 
     python -m ldpc_tpu_torch.scripts.phi_sass
 
-prints one JSON line: the count, the instructions by opcode, the float32
-pipe's share and ``nvcc --version``'s last line.
+prints one JSON line: the float32 operations, those of the predicated
+instructions, the instructions by opcode (``@`` marks a predicated one),
+their total and ``nvcc --version``'s last line.
 """
 
 from __future__ import annotations
@@ -46,11 +55,15 @@ extern "C" __global__ void copy_only(const float* x, float* y, int n) {
   if (k < n) y[k] = x[k];
 }
 """
-_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*)(?:\.[A-Z0-9_.]+)?")
-# float32-pipe opcodes (adds, multiplies, FMAs, compares, selects, min/max,
-# the special-function unit, conversions)
-_F32 = re.compile(r"^(F[A-Z0-9]*|MUFU|I2F|F2I|HADD2|HMUL2)$")
+# float32 operations of an instruction, an FFMA counted as 2 as the peak
+# counts it; an opcode not listed counts 0
+_FLOPS = {"FFMA": 2, "FFMA32I": 2, "FADD": 1, "FADD32I": 1, "FMUL": 1,
+          "FMUL32I": 1, "FMNMX": 1, "FSETP": 1, "FSET": 1, "FSEL": 1,
+          "FRND": 1, "MUFU": 1}
+_BRANCH = {"BRA", "BRX", "JMP", "JMX", "CALL", "RET", "BSSY", "BSYNC",
+           "BREAK", "WARPSYNC"}
 
 
 def phi_source(path: pathlib.Path = _DECODE) -> str:
@@ -64,7 +77,8 @@ def phi_source(path: pathlib.Path = _DECODE) -> str:
 
 def sass_counts(sass: str) -> dict[str, collections.Counter]:
     """Opcodes of each function of a ``cuobjdump -sass`` listing, NOPs left
-    out."""
+    out; a predicated instruction (``@P0``, ``@!P1``, not ``@PT``) counts
+    under ``"@" + opcode``."""
     out: dict[str, collections.Counter] = {}
     current = None
     for line in sass.splitlines():
@@ -73,9 +87,19 @@ def sass_counts(sass: str) -> dict[str, collections.Counter]:
             current = out.setdefault(m.group(1), collections.Counter())
             continue
         m = _INSN.search(line)
-        if m and current is not None and m.group(1) != "NOP":
-            current[m.group(1)] += 1
+        if m and current is not None and m.group(2) != "NOP":
+            pred = m.group(1) and m.group(1).strip() != "@PT"
+            current[("@" if pred else "") + m.group(2)] += 1
     return out
+
+
+def flops(counts: collections.Counter) -> tuple[int, int]:
+    """(float32 operations of the instructions that always run, those of the
+    predicated ones) of an opcode count from ``sass_counts``."""
+    always = sum(_FLOPS.get(op, 0) * c for op, c in counts.items())
+    special = sum(_FLOPS.get(op[1:], 0) * c for op, c in counts.items()
+                  if op.startswith("@"))
+    return always, special
 
 
 def _cuobjdump(nvcc: str) -> str:
@@ -111,11 +135,17 @@ def count(path: pathlib.Path = _DECODE) -> dict:
                              text=True, timeout=60).stdout.strip()
     counts = sass_counts(sass)
     phi = counts["phi_only"] - counts["copy_only"]   # drops counts <= 0
+    branches = sorted(op for op in phi if op.lstrip("@") in _BRANCH)
+    if branches:
+        raise RuntimeError(f"phi branches ({branches}): its instructions are "
+                           "not one path, and the count would not be what "
+                           "runs")
     total = (sum(counts["phi_only"].values()) -
              sum(counts["copy_only"].values()))
-    f32 = sum(c for op, c in phi.items() if _F32.match(op))
-    return {"instructions": total, "by_opcode": dict(sorted(phi.items())),
-            "f32_pipe": f32, "kernel_instructions": {
+    always, special = flops(phi)
+    return {"flops": always, "predicated_flops": special,
+            "instructions": total, "by_opcode": dict(sorted(phi.items())),
+            "kernel_instructions": {
                 k: sum(v.values()) for k, v in counts.items()},
             "nvcc": version.splitlines()[-1] if version else ""}
 

@@ -9,6 +9,8 @@ The counterpart of ``ldpc_tpu/utils/profiling.py``:
   ``torch.cuda.synchronize`` on a CUDA device, accumulating decoded bit/s
   (PyTorch returns before the card finishes, so an unsynchronised span
   times the enqueue);
+* ``timed_once`` and ``time_ms``: one call, or the median of several,
+  timed with CUDA events on the card (the host clock on the CPU);
 * ``device_roofline``: the card's published peaks for speed-of-light
   comparisons, plus the measured per-primitive costs of
   ``data/kernel_roofline.json`` when it exists (written by
@@ -28,11 +30,13 @@ import pathlib
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from .device import resolve_device
 
-__all__ = ["trace", "ThroughputTimer", "device_roofline", "smi_query",
+__all__ = ["trace", "ThroughputTimer", "timed_once", "time_ms",
+           "device_roofline", "smi_query",
            "smem_bytes_per_s", "HBM_BYTES_PER_S", "F32_OPS_PER_S",
            "HBM_BYTES", "SMEM_BYTES_PER_CLOCK", "ARTIFACT"]
 
@@ -116,6 +120,46 @@ class ThroughputTimer:
                 "device": str(self.device)}
 
 
+def timed_once(fn, device):
+    """``(fn(), milliseconds)`` of one call: CUDA events on the card, the
+    host clock on the CPU; the device is idle when the call starts."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return out, start.elapsed_time(stop)
+
+
+def time_ms(fn, device, reps: int = 1) -> float:
+    """Median milliseconds of ``reps`` calls, each timed alone with CUDA
+    events on the card.  An untimed call queued ahead of each keeps the
+    card busy while the host launches the timed one, so the host's cost of
+    a launch is not counted."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        fn()
+        return float(np.median([timed_once(fn, dev)[1] for _ in range(reps)]))
+    times = []
+    for _ in range(reps):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
 def smi_query(*fields: str) -> list[str]:
     """One ``nvidia-smi --query-gpu=<fields> --format=csv,noheader`` value
     per field, for the first card; raises where ``nvidia-smi`` fails."""
@@ -136,7 +180,8 @@ def device_roofline(device=None) -> dict:
     """The published peaks of the device's kind (an H100; none for another
     kind or the CPU) and, when ``data/kernel_roofline.json`` exists, the
     card's measured primitive costs under ``"measured"`` (each stamped with
-    the card's name and power limit it was measured on)."""
+    the card's name and power limit it was measured on); an artifact that
+    cannot be read or parsed raises, with its path."""
     dev = resolve_device(device)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     out: dict = {"device_kind": kind}
@@ -147,6 +192,7 @@ def device_roofline(device=None) -> dict:
     if ARTIFACT.exists():
         try:
             out["measured"] = json.loads(ARTIFACT.read_text())
-        except (OSError, ValueError):
-            pass
+        except (OSError, ValueError) as e:
+            raise RuntimeError(f"cannot read the measured roofline "
+                               f"{ARTIFACT}: {e}") from e
     return out

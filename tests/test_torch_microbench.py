@@ -12,9 +12,9 @@ inside the JAX script's ``main()`` and so are copied here verbatim:
   mod-511 probe at K = 3);
 - the final buffers exactly, through a copy of ``_build_probe`` whose
   output is the buffers instead of the sum.
-The kernel's rotations, whose index arithmetic ``source_rows`` mirrors,
-equal ``pltpu.roll`` elementwise.  The kernel itself runs only on the card
-(tests/test_torch_gpu.py).
+The kernel's rotations, whose index arithmetic ``source_rows`` below
+mirrors, equal ``pltpu.roll`` elementwise.  The kernel itself runs only on
+the card (tests/test_torch_gpu.py).
 """
 
 import importlib.util
@@ -30,9 +30,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from ldpc_tpu_torch.ops import microbench
-from ldpc_tpu_torch.ops.microbench import (NAMES, PROBES, fill_tiles,
+from ldpc_tpu_torch.ops.microbench import (NAMES, PROBES, SHIFT, fill_tiles,
                                            input_tile, probe,
-                                           probe_reference, source_rows)
+                                           probe_reference)
 from ldpc_tpu_torch.scripts import kernel_microbench, phi_sass
 
 torch.set_num_threads(1)
@@ -40,6 +40,23 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 K = 3            # runs of a body in the comparisons with JAX
 SUM_RTOL = 1e-4  # of the sum of |values|: the sums' orders differ
+
+
+def source_rows(name: str) -> np.ndarray:
+    """The row that each output row of a rotating probe reads in the kernel,
+    computed as ``csrc/microbench.cu``'s ``source_row`` computes it
+    (``j = i + s; if (j >= z) j -= z``); the identity for the other
+    probes."""
+    body, _, rows, _ = PROBES[name]
+    i = np.arange(rows)
+    if body == 3:
+        z, s = microbench.Z, SHIFT
+    elif body in (1, 2):
+        z, s = rows, rows - SHIFT
+    else:
+        return i
+    j = i + s
+    return np.where(j >= z, j - z, j)
 
 # --- the JAX script's probe bodies, verbatim (scripts/kernel_microbench.py,
 # main(), :112-151) ---------------------------------------------------------
@@ -292,8 +309,10 @@ def test_script_on_cpu(monkeypatch, capsys):
     op-count model; no file written."""
     monkeypatch.setenv("LDPC_TPU_PLATFORM", "cpu")
     monkeypatch.setattr(kernel_microbench, "DECODER_TRIALS", 1)
-    res = kernel_microbench.main(["--k", "2,4", "--tiles", "1,2",
-                                  "--decoder-words", "2"])
+    monkeypatch.setattr(kernel_microbench, "K_FULL", (2, 4))
+    monkeypatch.setattr(kernel_microbench, "TILES", (1, 2))
+    monkeypatch.setattr(kernel_microbench, "DECODER_WORDS", (2,))
+    res = kernel_microbench.main([])
     lines = capsys.readouterr().out.strip().splitlines()
     assert json.loads(lines[-1]) == res
     assert res["device"] == "cpu" and res["k"] == [2, 4]
@@ -359,8 +378,11 @@ def test_sass_counts_parse_a_listing():
     counts = phi_sass.sass_counts(listing)
     assert dict(counts["copy_only"]) == {"LDC": 1, "S2R": 1, "EXIT": 1,
                                          "BRA": 1}
-    assert dict(counts["phi_only"]) == {"LDC": 1, "FMUL": 1, "MUFU": 1,
+    assert dict(counts["phi_only"]) == {"LDC": 1, "FMUL": 1, "@MUFU": 1,
                                         "FFMA": 1, "EXIT": 1}
+    # an FFMA counts 2, the predicated MUFU only among the special cases
+    assert phi_sass.flops(counts["phi_only"]) == (3, 1)
+    assert phi_sass.flops(counts["copy_only"]) == (0, 0)
 
 
 def test_phi_count_raises_without_the_toolkit(monkeypatch):

@@ -1,6 +1,6 @@
 """``ldpc_tpu_torch/utils/profiling.py`` on the CPU: the card's peaks (the
 one source of ``chip_smoke.py``'s bounds), the measured roofline artifact,
-the throughput timer and the profiler trace."""
+the throughput timer, the timing helpers and the profiler trace."""
 
 import json
 
@@ -10,7 +10,8 @@ import torch
 import chip_smoke
 from ldpc_tpu_torch.utils import profiling
 from ldpc_tpu_torch.utils.profiling import (ThroughputTimer, device_roofline,
-                                            smem_bytes_per_s, trace)
+                                            smem_bytes_per_s, time_ms,
+                                            timed_once, trace)
 
 torch.set_num_threads(1)
 
@@ -75,3 +76,31 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(256).cumsum(0)
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert events["traceEvents"]
+
+
+def test_device_roofline_raises_on_an_unreadable_artifact(monkeypatch,
+                                                          tmp_path):
+    """A corrupt artifact is an error naming its path; only a missing one
+    means 'not measured'."""
+    bad = tmp_path / "kernel_roofline.json"
+    bad.write_text("{not json")
+    monkeypatch.setattr(profiling, "ARTIFACT", bad)
+    with pytest.raises(RuntimeError, match="kernel_roofline.json"):
+        device_roofline("cpu")
+    monkeypatch.setattr(profiling, "ARTIFACT", tmp_path / "missing.json")
+    assert "measured" not in device_roofline("cpu")
+
+
+def test_timed_once_and_time_ms_on_cpu():
+    """The one event-timing helper of chip_smoke.py, kernel_ab.py and the
+    probe script: the host clock on the CPU, the call's result kept."""
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return torch.arange(4).sum()
+
+    out, ms = timed_once(fn, "cpu")
+    assert int(out) == 6 and ms >= 0 and len(calls) == 1
+    assert time_ms(fn, "cpu", reps=3) >= 0
+    assert len(calls) == 1 + 1 + 3        # one untimed call, three timed
