@@ -11,13 +11,15 @@ no result line:
            barrier_probe.cu and microbench.cu, one process each, all
            started together (ptxas report); phi's float32 operations are
            counted from its SASS (ldpc_tpu_torch/scripts/phi_sass.py) for
-           the sum-product bounds.
+           the sum-product bounds; the flooding edge loops of B1 (bf16 and
+           f32) are counted from theirs (ldpc_tpu_torch/scripts/edge_sass.py,
+           compiled beside the build): shared-memory instructions an edge.
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
-           words at 12 and at 50 iterations).  Converged words must agree
-           exactly; times with CUDA events.  The staged cascade must equal
-           a straight 50-iteration decode.
+           words at 12 and at 50 iterations).  Every word must agree
+           exactly, converged or not; times with CUDA events.  The staged
+           cascade must equal a straight 50-iteration decode.
 4. main    near-earth (8176, 7154), B = 32,768, 3.0/3.2/3.4/3.6 dB, the
            12 -> 50 staged cascade, one warm and three timed batches a point:
            decoded bit/s, BER, FER, iterations, cascade branch, launches.
@@ -82,7 +84,8 @@ no result line:
            word; (b) ldpc_tpu_torch.scripts.kernel_microbench --quick (the
            probes' slopes at one tile and at the card-filling count, and
            the fused kernel's per-iteration slopes at 128 and 32,768 words,
-           bf16 and f32); (c) each probe timed at the card-filling count,
+           bf16 and f32, against the probes' op-count model);
+           (c) each probe timed at the card-filling count,
            K = 1,000, beside its plain version, its bound and its
            shared-memory bound.
 13. the kernels line, the card line again, and the result line.
@@ -106,6 +109,7 @@ import collections
 import json
 import re
 import sys
+import threading
 import time
 import traceback
 
@@ -133,7 +137,8 @@ from ldpc_tpu_torch.sim.evaluate import (StagedDecoder,
                                          evaluate_code,
                                          make_staged_decoder_device,
                                          make_staged_sweep_device, transmit)
-from ldpc_tpu_torch.scripts import kernel_microbench, phi_sass, split_ab
+from ldpc_tpu_torch.scripts import (edge_sass, kernel_microbench, phi_sass,
+                                    split_ab)
 from ldpc_tpu_torch.sim.stats import BerStatistics, wilson_interval
 from ldpc_tpu_torch.utils.device import device_info
 from ldpc_tpu_torch.utils.profiling import (F32_OPS_PER_S, HBM_BYTES_PER_S,
@@ -400,6 +405,11 @@ def phase_card(dev) -> str:
 def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
     sources = ("decode", "split", "barrier_probe", "microbench")
+    # the edge loops' cubin compiles beside the build, in a thread of its own
+    edges: dict = {}
+    counter = threading.Thread(
+        target=lambda: edges.update(res=_edge_count()), daemon=True)
+    counter.start()
     build(*sources)
     reps = {}
     for name in sources:
@@ -421,7 +431,24 @@ def phase_build() -> dict:
         f"argument ({phi['predicated_flops']} more predicated, for some; "
         f"{phi['instructions']} SASS instructions; {phi['nvcc']}): "
         f"{phi['by_opcode']}")
+    counter.join()
+    res = edges.get("res")
+    if isinstance(res, BaseException):
+        raise res
+    log("build", f"edge loops: {edge_sass.summary(res)}; shared "
+        "instructions by opcode (A, B): " + "; ".join(
+            f"{k} {res[k]['A']['shared_by_opcode']}, "
+            f"{res[k]['B']['shared_by_opcode']}" for k in edge_sass.INSTANCES))
+    reps["edge_sass"] = res
     return reps
+
+
+def _edge_count():
+    """edge_sass.count(), or the exception it raised (for the thread)."""
+    try:
+        return edge_sass.count()
+    except Exception as e:  # noqa: BLE001 — re-raised by phase_build
+        return e
 
 
 def phase_kernel(dev, code, gen) -> dict:
@@ -447,10 +474,10 @@ def phase_kernel(dev, code, gen) -> dict:
         log("kernel", f"{label}: {c['mismatched_converged']} mismatched "
             f"converged words, {c['mismatched']} mismatched in all, "
             f"converged {int(kern[2].sum())}/{b}")
-        if c["mismatched_converged"]:
+        if c["mismatched"]:
             raise AssertionError(f"{label}: kernel and plain version differ "
-                                 f"on {c['mismatched_converged']} converged "
-                                 "words")
+                                 f"on {c['mismatched']} words "
+                                 f"({c['mismatched_converged']} converged)")
         if b == BATCH:
             ms = time_ms(lambda: dec(llr), dev, reps=KERNEL_REPS)
             _, plain_ms = timed_once(lambda: flooding_reference(
@@ -1345,6 +1372,13 @@ def phase_microbench(dev) -> dict:
             log("12microbench", f"(b) {k}: {us:.3f} us an iteration")
     log("12microbench", f"(b) op-count model: {json.dumps(res['model'])}; "
         f"launches {got}")
+    lo, words = kernel_microbench.DECODER_WORDS[0], res["model"]["words"]
+    log("12microbench", f"(b) fused kernel (B1), us an iteration at {lo} "
+        f"and {words} words, measured / model: " + "; ".join(
+            f"{s} {res[kernel_microbench.decoder_key(s, lo)]:.3f}, "
+            f"{res[kernel_microbench.decoder_key(s, words)]:.3f}, "
+            f"{res['model'][f'measured_over_model_{s}']:.3f}"
+            for s in kernel_microbench.DECODER_STORES))
     smem_rate = res.get("smem_bytes_per_s")
     for name in microbench.NAMES:
         _, n_bufs, r, dtype = microbench.PROBES[name]

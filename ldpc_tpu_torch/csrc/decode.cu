@@ -22,10 +22,10 @@
 //       stashed phi per (block edge, check);
 //   B5  store_dtype int8 (`_st`/`_ld`/`_st_raw`): a value is stored as
 //       clip(rint(x * 8), -127, 127) and loaded as q / 8 (Q4.3; the two-min
-//       start saturates to 127); the argmin plane holds the slot index
-//       unscaled; the LLRs enter through the same quantizer;
+//       start saturates to 127); the argmin is the slot index unscaled;
+//       the LLRs enter through the same quantizer;
 //   B6  popcount_sign (`_sign_from_bits`): the sign product is the parity
-//       of the xor of the check's sign words, and no sign plane is kept.
+//       of the xor of the check's sign words, and none is stored.
 // Contract of decode_counts there: per word (bit errors against the all-zero
 // codeword, iterations, success), check BEFORE update, max_iters + 1 bodies,
 // non-converged words report the state after exactly max_iters updates.
@@ -37,48 +37,73 @@
 // under the layered schedule (a syndrome pass, the row update, and two
 // rebuilt messages, a subtract and an add per edge); sum-product about 14
 // plus two tanhf and two logf in phase A and 8 plus one of each in phase B.
-// Every variant is bound by operations, not bytes.
+// By those counts every variant is bound by operations; on the card the
+// edge loops are bound by the instructions they issue an edge, shared-memory
+// accesses first (ldpc_tpu_torch/scripts/edge_sass.py counts them).
 //
 // Why this layout.  The TPU kernel lays 128 words across the vector lanes
 // and keeps their state in VMEM.  Here one block owns one word and keeps its
-// whole state in shared memory:
-//   chan, totals       n      Store each  (variable frame)
-//   min-sum family:    m1, m2, argmin: m Store each; the sign product: m
-//                      Store unless popcount_sign
-//   sum-product:       S, sign product: m Store each; phi stash:
-//                      n_edges * z Store (block edge e, check i at e*z + i)
-//   edge signs         m * ceil(dc/32) uint32 (bit d%32 of word d/32)
-//   layered row:       z * (ceil(dc/32) + 4) 32-bit words: the new state of
+// whole state in shared memory (byte offsets in Layout, in this order):
+//   edge tables        int32, as the host lays them out (below)
+//   min-sum family, from a 16-byte boundary:
+//     column table     int4 per (block column, column slot): the byte offset
+//                      of the record of variable j = 0, the shift in record
+//                      bytes, the row slot
+//     check records    one per check: sign word 0, m1, m2, the argmin (a
+//                      slot index), the sign product as a bit (unused with
+//                      popcount_sign); bf16 and f32 16 bytes (word 0 | m1 |
+//                      m2 | argmin, the store's values as float32 bits with
+//                      the sign product in bit 31), int8 8 (word 0 | argmin
+//                      | m2 << 8 | m1 << 24, the sign product in bit 31)
+//     row table        int2 per (block row, slot): the byte offset of the
+//                      total of check i = 0, and the wrap threshold
+//                      (z - shift) * sizeof(Store)
+//     sign words 1..   m * (ceil(dc/32) - 1) uint32 (check degree > 32)
+//     layered row      z * (ceil(dc/32) + 4) 32-bit words: the new state of
 //                      the block row being updated (signs, then m1, m2,
 //                      argmin and sign product as f32)
-//   edge tables        int32, below
+//   sum-product:       sign words m * ceil(dc/32) uint32 (bit d%32 of word
+//                      d/32); S, the sign product: m Store each; phi stash:
+//                      n_edges * z Store (block edge e, check i at e*z + i)
+//   chan, totals       n Store each (variable frame)
 // Bytes per block (dynamic shared memory, tables included):
 //                      near-earth (n 8176, m 1022)   802.11n (n 1944), r1/2
-//   min-sum, bf16      46,328                        23,568
-//   min-sum, f32       87,208                        39,120
-//   min-sum, int8      25,888                        15,792
-//   popcount_sign      m * sizeof(Store) less
+//   min-sum, bf16      51,952                        32,448
+//   min-sum, f32       84,656                        40,224
+//   min-sum, int8      27,424                        20,784
 //   layered            + 10,220                      + 1,620
 //   sum-product, bf16  107,648                       33,612
 //   sum-product, f32   209,848                       59,208
-// Sum-product with f32 state on near-earth leaves room for one block of 256
-// threads on an SM; it is slow, and right.  Flooding phase A runs one thread
-// per check (the rotation into the check frame is the index (i + s) mod z),
-// phase B one thread per variable.  A word leaves the loop as soon as all
-// its checks are satisfied (__syncthreads_or): the TPU kernel's latches
-// freeze a converged word, so per-word exit gives the same outputs as its
-// per-tile exit, and no pad row is needed since z is indexed exactly.
+// Near-earth min-sum leaves room for four blocks an SM in bf16 and int8 and
+// two in f32; sum-product with f32 state for one (slow, and right).
+//
+// The flooding loops of the min-sum family.  Phase A: a thread takes the
+// checks i0 and i0 + h (h = ceil(z/2)) of one block row and folds both
+// slot by slot; phase B: it takes the variables j0 + q*h (h = ceil(z/4),
+// q < 4) of one block column and sums each one's messages.  A slot's table
+// entry is thus loaded once for two checks or four variables, it is the same
+// for every thread of a warp but where a warp straddles two block rows or
+// columns, and it holds the address arithmetic, so a check's edge costs one
+// 2-byte (bf16) load of a total and a variable's edge one vector load of a
+// check record; the rotation into the check frame is the index (i + s) mod
+// z, one compare and select.  802.11n (z 81, 12 block rows) still keeps all
+// 256 threads busy: the (block row, i0) pairs are numbered across rows.
+// A word leaves the loop as soon as all its checks are satisfied
+// (__syncthreads_or): the TPU kernel's latches freeze a converged word, so
+// per-word exit gives the same outputs as its per-tile exit, and no pad row
+// is needed since z is indexed exactly.  Sum-product keeps a thread per
+// check and per variable, with the host's tables.
 //
 // The layered hazard.  A block of the base matrix may hold several shifts
 // (near-earth: two in each), so two edges of one row reach the same
 // variable, and the order in which their deltas are rounded into the totals
 // decides the result.  The update of a block row therefore runs in three
 // steps with a barrier after the first two: (a) one thread per check builds
-// the row's new state from the current totals and the old state, into the
+// the row's new state from the current totals and the old record, into the
 // row scratch (f32, unrounded, as Pallas rebuilds the new messages from the
 // unrounded fold); (c) one thread per (block column, variable) of the row
 // applies that column's edges of the row in slot order, rounding the total
-// after each; (d) each check's new state is rounded into its planes (the
+// after each; (d) each check's new state is rounded into its record (the
 // same thread owns check i in (d) and in the next row's (a), so they need no
 // barrier between them).  The cost: 2 barriers per block row; near-earth
 // has 2 block rows of 16 edge pairs, 802.11n rate 1/2 12 rows of 81 checks,
@@ -90,8 +115,11 @@
 //   - every state write rounds to the store type (__float2bfloat16_rn for
 //     bf16, rintf, which rounds half to even as jnp.round does, for int8)
 //     and every read widens to f32; arithmetic is f32;
-//   - the argmin plane holds the slot index d as a Store number (bf16:
-//     exact to 256; f32: to 2^24; int8: unscaled, to 127);
+//   - the argmin is the slot index d, exact in every store; the sign
+//     product is +-1 as a bit, stored or (popcount_sign) the parity of the
+//     check's sign words, and the same +-1 either way;
+//   - a message is its rebuilt magnitude with the sign bit set where sign
+//     product x edge sign is -1: the product by +-1, exactly;
 //   - flooding phase B sums each variable as tot = -chan, then += in the
 //     plan's column-edge order (ascending block row, then slot), never
 //     reassociated; sum-product's S sums the new phi in row-slot order
@@ -102,11 +130,10 @@
 //     --use_fast_math;
 //   - phi(x) = -logf(tanhf(x * 0.5f)): two rounded library calls, as
 //     torch computes -torch.log(torch.tanh(x * 0.5)) on the card;
-//   - a new minimum needs a strict <;
-//   - the stored and the folded sign product are the same +-1, so
-//     popcount_sign changes no value anywhere.
+//   - a new minimum needs a strict <.
 //
-// Tables (int32, one array, staged into shared memory at block start):
+// Tables (int32, one array, staged into shared memory at block start; the
+// min-sum family's packed tables are built from it there):
 //   row_deg[mb_n] | row_base[mb_n] | row_nb[mb_n*dc] | row_shift[mb_n*dc] |
 //   col_deg[nb_n] | col_mb[nb_n*dv] | col_d[nb_n*dv] | col_shift[nb_n*dv]
 // Row slots d < row_deg[mb] are the plan's CN slots, in ascending block
@@ -121,6 +148,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Flooding: the checks of one block row that a thread folds together in
+// phase A, and the variables of one block column that it sums together in
+// phase B; each edge-table entry is loaded once for all of them.
+constexpr int kChecks = 2;
+constexpr int kVars = 4;
 constexpr float kBig = 3.0e38f;       // two-min fold start (pallas _BIG)
 constexpr float kLlrClip = 1.0e30f;   // +-inf -> +-1e30, as at kernel entry
 constexpr float kPhiMin = 1.0e-9f;    // phi argument clip (pallas _PHI_MIN)
@@ -135,8 +167,7 @@ enum Kind : int {
   kSumProduct = 3
 };
 
-// ---- the store types: st rounds an f32 into the store, ld widens it;
-// st_raw / ld_raw hold the argmin plane (a slot index, never scaled) ----
+// ---- the store types: st rounds an f32 into the store, ld widens it ----
 
 __device__ __forceinline__ float ld(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -168,21 +199,87 @@ __device__ __forceinline__ int8_t st<int8_t>(float x) {
       fminf(fmaxf(rintf(x * kQuant), -kQuantMax), kQuantMax));
 }
 
+// ---- the check record of the min-sum family: sign word 0, m1, m2 and the
+// argmin (a slot index), with the sign product as a bit ----
+
 template <typename S>
-__device__ __forceinline__ S st_raw(float x) {
-  return st<S>(x);
-}
+struct Rec;
+
+// bf16 and f32: 16 bytes, word 0 | m1 | m2 | argmin, m1 and m2 as float32
+// bits (a bf16 value is one exactly) with bit 31 set where the sign product
+// is -1, so that a message is the picked word with one bit flipped
+struct Rec32 {
+  using V = uint4;
+  static constexpr bool kSigned = true;
+  __device__ static int am(const V& r) { return static_cast<int>(r.w); }
+  // bit 31: the sign product is negative (the other bits are not a flag)
+  __device__ static uint32_t negmask(const V& r) { return r.y; }
+  // m2 where d is the argmin, else m1, with the sign product's bit
+  __device__ static uint32_t pick(const V& r, int d) {
+    return am(r) == d ? r.z : r.y;
+  }
+  __device__ static float mag(const V& r, int d) {
+    return __uint_as_float(pick(r, d) & 0x7fffffffu);
+  }
+  __device__ static float m1(const V& r) {
+    return __uint_as_float(r.y & 0x7fffffffu);
+  }
+  __device__ static float m2(const V& r) {
+    return __uint_as_float(r.z & 0x7fffffffu);
+  }
+  __device__ static V make(uint32_t w0, float n1, float n2, int am,
+                           uint32_t neg) {
+    return make_uint4(w0, __float_as_uint(n1) | (neg << 31),
+                      __float_as_uint(n2) | (neg << 31),
+                      static_cast<uint32_t>(am));
+  }
+};
 
 template <>
-__device__ __forceinline__ int8_t st_raw<int8_t>(float x) {
-  return static_cast<int8_t>(x);
-}
+struct Rec<float> : Rec32 {
+  __device__ static V pack(uint32_t w0, float n1, float n2, int am,
+                           uint32_t neg) {
+    return make(w0, n1, n2, am, neg);
+  }
+};
 
-__device__ __forceinline__ float ld_raw(__nv_bfloat16 x) { return ld(x); }
-__device__ __forceinline__ float ld_raw(float x) { return x; }
-__device__ __forceinline__ float ld_raw(int8_t q) {
-  return static_cast<float>(q);
-}
+template <>
+struct Rec<__nv_bfloat16> : Rec32 {
+  __device__ static V pack(uint32_t w0, float n1, float n2, int am,
+                           uint32_t neg) {
+    return make(w0, ld(st<__nv_bfloat16>(n1)), ld(st<__nv_bfloat16>(n2)), am,
+                neg);
+  }
+};
+
+// int8: 8 bytes, word 0 | argmin | m2 (Q4.3) << 8 | m1 (Q4.3) << 24, bit 31
+// set where the sign product is -1
+template <>
+struct Rec<int8_t> {
+  using V = uint2;
+  static constexpr bool kSigned = false;
+  __device__ static int am(const V& r) {
+    return static_cast<int>(r.y & 0xffu);
+  }
+  __device__ static uint32_t negmask(const V& r) { return r.y; }
+  __device__ static float m1(const V& r) {
+    return static_cast<float>((r.y >> 24) & 0x7fu) * (1.0f / kQuant);
+  }
+  __device__ static float m2(const V& r) {
+    return static_cast<float>((r.y >> 8) & 0xffu) * (1.0f / kQuant);
+  }
+  __device__ static float mag(const V& r, int d) {
+    return am(r) == d ? m2(r) : m1(r);
+  }
+  __device__ static V pack(uint32_t w0, float n1, float n2, int am,
+                           uint32_t neg) {
+    // n1, n2 >= 0, so their Q4.3 values are 0..127
+    const uint32_t q1 = static_cast<uint8_t>(st<int8_t>(n1));
+    const uint32_t q2 = static_cast<uint8_t>(st<int8_t>(n2));
+    return make_uint2(w0, static_cast<uint32_t>(am) | (q2 << 8) |
+                              (q1 << 24) | (neg << 31));
+  }
+};
 
 __device__ __forceinline__ float phi(float x) {
   return -logf(tanhf(x * 0.5f));
@@ -200,18 +297,44 @@ __device__ __forceinline__ float adjust(float mag, float alpha, float beta) {
   return mag;
 }
 
-// +-1 from the parity of a check's sign words (`_sign_from_bits`).
-template <bool kWide>
-__device__ __forceinline__ float parity_sign(const uint32_t* w, int n_sw) {
-  uint32_t x = w[0];
-  if (kWide) {
-    for (int k = 1; k < n_sw; ++k) x ^= w[k];
-  }
-  return 1.f - 2.f * static_cast<float>(__popc(x) & 1);
+__device__ __forceinline__ uint32_t parity(uint32_t x) {
+  return static_cast<uint32_t>(__popc(x)) & 1u;
+}
+
+// acc |= mask where x < 0 (false for -0 and NaN): a compare and a
+// predicated or, where the compiler's own code adds a select
+__device__ __forceinline__ void or_if_negative(uint32_t& acc, float x,
+                                               uint32_t mask) {
+#ifdef __CUDA_ARCH__
+  asm("{\n\t.reg .pred p;\n\tsetp.lt.f32 p, %1, 0f00000000;\n\t"
+      "@p or.b32 %0, %0, %2;\n\t}"
+      : "+r"(acc)
+      : "f"(x), "r"(mask));
+#else
+  if (x < 0.f) acc |= mask;
+#endif
+}
+
+// acc ^= 1 where x < 0, likewise
+__device__ __forceinline__ void flip_if_negative(uint32_t& acc, float x) {
+#ifdef __CUDA_ARCH__
+  asm("{\n\t.reg .pred p;\n\tsetp.lt.f32 p, %1, 0f00000000;\n\t"
+      "@p xor.b32 %0, %0, 1;\n\t}"
+      : "+r"(acc)
+      : "f"(x));
+#else
+  if (x < 0.f) acc ^= 1u;
+#endif
 }
 
 __device__ __forceinline__ float bit_sign(uint32_t word, int r) {
   return 1.f - 2.f * static_cast<float>((word >> r) & 1u);
+}
+
+// x (a magnitude, sign bit clear) negated where bit 31 of s is set: the
+// product by +-1, exactly
+__device__ __forceinline__ float with_sign(float x, uint32_t s) {
+  return __uint_as_float(__float_as_uint(x) ^ (s & 0x80000000u));
 }
 
 __host__ __device__ __forceinline__ int table_ints(int mb_n, int nb_n, int dc,
@@ -234,9 +357,50 @@ struct Args {
   int* success;
 };
 
-// The shared-memory planes of one word (see the layout above).
+// Byte offsets of one block's dynamic shared memory (see the layout above).
+template <int K, typename S, bool kLayered>
+struct Layout {
+  long long ctab = 0, rec = 0, rtab = 0, xbits = 0, row = 0, bits = 0,
+            sp_m1 = 0, sp_m2 = 0, stash = 0, chan = 0, tot = 0, total = 0;
+  __host__ __device__ explicit Layout(const Args& a) {
+    const long long sz = sizeof(S);
+    const long long sw = sign_words(a.dc);
+    long long o = 4LL * table_ints(a.mb_n, a.nb_n, a.dc, a.dv);
+    if (K == kSumProduct) {
+      bits = o;
+      o += 4LL * a.m * sw;
+      sp_m1 = o;
+      o += sz * a.m;
+      sp_m2 = o;
+      o += sz * a.m;
+      stash = o;
+      o += sz * a.n_edges * a.z;
+    } else {
+      o = (o + 15) / 16 * 16;
+      ctab = o;
+      o += 16LL * a.nb_n * a.dv;
+      rec = o;
+      o += static_cast<long long>(sizeof(typename Rec<S>::V)) * a.m;
+      rtab = o;
+      o += 8LL * a.mb_n * a.dc;
+      xbits = o;
+      o += 4LL * a.m * (sw - 1);
+      row = o;
+      if (kLayered) o += 4LL * a.z * (sw + 4);
+    }
+    chan = o;
+    o += sz * a.n;
+    tot = o;
+    o += sz * a.n;
+    total = o;
+  }
+};
+
+// The shared-memory state of one word.
 template <typename S>
-struct Planes {
+struct Smem {
+  unsigned char* base;
+  // the edge tables as the host lays them out
   const int* row_deg;
   const int* row_base;
   const int* row_nb;
@@ -245,76 +409,159 @@ struct Planes {
   const int* col_mb;
   const int* col_d;
   const int* col_shift;
-  uint32_t* bits;
-  S* m1;     // sum-product: S
-  S* m2;     // sum-product: the sign product
-  S* am;     // sum-product: the phi stash
-  S* sp;     // min-sum family, unless popcount_sign
-  S* chan;
-  S* tot;
+  // min-sum family: per (block row, slot) the byte offset of the total of
+  // check i = 0 and the wrap threshold i * sizeof(S); per (block column,
+  // column slot) the byte offset of the record of variable j = 0, the shift
+  // in record bytes and the row slot
+  const int2* rtab;
+  const int4* ctab;
+  typename Rec<S>::V* rec;
+  uint32_t* xbits;   // check degree > 32: sign words 1.. of each check
   // layered: the new state of the row being updated (f32, unrounded)
   uint32_t* rbits;
   float* rm1;
   float* rm2;
   float* ram;
   float* rsp;
+  // sum-product: sign words, S, the sign product, the phi stash
+  uint32_t* bits;
+  S* m1;
+  S* m2;
+  S* stash;
+  S* chan;
+  S* tot;
 };
 
-// Min-sum family: the new compressed state of check c from the current
-// totals and the check's old state (`_row_stats`).  The new sign words go
-// to out_bits (flooding: in place; an old word is read before its new one
-// is written); returns the parity of the check's totals.
-template <int K, typename S, bool kWide, bool kPop>
-__device__ __forceinline__ int row_stats(const Planes<S>& p, const Args& a,
-                                         int c, int n_sw, uint32_t* out_bits,
-                                         float& n1, float& n2, float& nam,
-                                         float& nsp) {
-  const int mb = c / a.z;
-  const int i = c - mb * a.z;
-  const float o1 = ld(p.m1[c]);
-  const float o2 = ld(p.m2[c]);
-  const float oam = ld_raw(p.am[c]);
-  const uint32_t* cbits = p.bits + c * n_sw;
-  const float osp = kPop ? parity_sign<kWide>(cbits, n_sw) : ld(p.sp[c]);
-  n1 = kBig;
-  n2 = kBig;
-  nam = 0.f;
-  nsp = 1.f;
-  int par = 0;
+// The new compressed state of one check (f32, unrounded).
+struct Folded {
+  float n1, n2;
+  int am;
+  uint32_t w0;    // sign word 0
+  uint32_t neg;   // the new sign product is negative (parity of the words)
+  uint32_t par;   // parity of the check's totals
+};
+
+// Min-sum family (`_row_stats`): the new state of the kC checks (mb, i[q])
+// of one block row from the current totals and their old records, slot by
+// slot in the row's order with a strict < for a new minimum.  The checks
+// share each slot's table entry.  Sign words past the first (check degree
+// > 32) are read from the checks' own words and written to xout[q] word by
+// word: an old word is read before its new one is written.
+template <int K, typename S, bool kWide, bool kPop, int kC>
+__device__ __forceinline__ void fold(const Smem<S>& p, const Args& a, int mb,
+                                     const int (&i)[kC],
+                                     uint32_t* const (&xout)[kC],
+                                     Folded (&f)[kC]) {
+  using R = Rec<S>;
+  constexpr int sz = sizeof(S);
+  const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
+  const int zb = a.z * sz;
+  float o1[kC], o2[kC];
+  int oam[kC], ib[kC];
+  uint32_t flip[kC], ow[kC], px[kC];
+  const uint32_t* xin[kC];
+#pragma unroll
+  for (int q = 0; q < kC; ++q) {
+    const int c = mb * a.z + i[q];
+    const typename R::V r = p.rec[c];
+    xin[q] = p.xbits + c * n_x;
+    o1[q] = R::m1(r);
+    o2[q] = R::m2(r);
+    oam[q] = R::am(r);
+    if (kPop) {
+      uint32_t x = r.x;
+      for (int k = 0; k < n_x; ++k) x ^= xin[q][k];
+      flip[q] = 0u - parity(x);
+    } else {
+      flip[q] = static_cast<uint32_t>(
+          static_cast<int32_t>(R::negmask(r)) >> 31);
+    }
+    // bit r: the sign of the old message of slot r
+    ow[q] = r.x ^ flip[q];
+    ib[q] = i[q] * sz;
+    px[q] = 0u;
+    f[q].n1 = kBig;
+    f[q].n2 = kBig;
+    f[q].am = 0;
+    f[q].w0 = 0u;
+    f[q].par = 0u;
+  }
   const int deg = p.row_deg[mb];
-  const int* rnb = p.row_nb + mb * a.dc;
-  const int* rsh = p.row_shift + mb * a.dc;
-  for (int d0 = 0; d0 < deg; d0 += 32) {
-    const uint32_t ob = cbits[d0 >> 5];
-    uint32_t nbits = 0u;
+  const int2* rt = p.rtab + mb * a.dc;
+  const int passes = kWide ? (deg + 31) >> 5 : 1;
+  for (int w = 0; w < passes; ++w) {
+    const int d0 = 32 * w;
+    if (kWide && w > 0) {
+#pragma unroll
+      for (int q = 0; q < kC; ++q) ow[q] = xin[q][w - 1] ^ flip[q];
+    }
+    uint32_t nbits[kC];
+#pragma unroll
+    for (int q = 0; q < kC; ++q) nbits[q] = 0u;
     const int dend = kWide ? min(deg, d0 + 32) : deg;
     for (int d = d0; d < dend; ++d) {
+      const int2 t = rt[d];
       const int r = d - d0;
-      int j = i + rsh[d];
-      if (j >= a.z) j -= a.z;
-      const float t = ld(p.tot[rnb[d] * a.z + j]);
-      par ^= t < 0.f;
-      const float mag = (oam == static_cast<float>(d)) ? o2 : o1;
-      const float v = t - osp * bit_sign(ob, r) * adjust<K>(mag, a.alpha,
-                                                            a.beta);
-      const float av = fabsf(v);
-      const bool newmin = av < n1;
-      n2 = newmin ? n1 : fminf(n2, av);
-      nam = newmin ? static_cast<float>(d) : nam;
-      n1 = fminf(n1, av);
-      const bool neg = v < 0.f;
-      nbits |= static_cast<uint32_t>(neg) << r;
-      if (!kPop) nsp = neg ? -nsp : nsp;
+      const uint32_t bit = 1u << r;
+#pragma unroll
+      for (int q = 0; q < kC; ++q) {
+        const int off = ib[q] >= t.y ? t.x + ib[q] - zb : t.x + ib[q];
+        const float tv = ld(*reinterpret_cast<const S*>(p.base + off));
+        flip_if_negative(f[q].par, tv);
+        const float mag = oam[q] == d ? o2[q] : o1[q];
+        const float v = tv - with_sign(adjust<K>(mag, a.alpha, a.beta),
+                                       ow[q] << (31 - r));
+        const float av = fabsf(v);
+        const bool newmin = av < f[q].n1;
+        f[q].n2 = newmin ? f[q].n1 : fminf(f[q].n2, av);
+        f[q].am = newmin ? d : f[q].am;
+        f[q].n1 = fminf(f[q].n1, av);
+        or_if_negative(nbits[q], v, bit);
+      }
     }
-    out_bits[d0 >> 5] = nbits;
+#pragma unroll
+    for (int q = 0; q < kC; ++q) {
+      px[q] ^= nbits[q];
+      if (!kWide || w == 0) {
+        f[q].w0 = nbits[q];
+      } else {
+        xout[q][w - 1] = nbits[q];
+      }
+    }
   }
-  if (kPop) nsp = parity_sign<kWide>(out_bits, n_sw);
-  return par;
+#pragma unroll
+  for (int q = 0; q < kC; ++q) f[q].neg = parity(px[q]);
+}
+
+// The c2v message of slot d from its check's record r (`_recon`); xw: the
+// check's sign words past the first (check degree > 32).
+template <int K, typename S, bool kWide, bool kPop>
+__device__ __forceinline__ float message(const typename Rec<S>::V& r,
+                                         const uint32_t* xw, int n_x, int d,
+                                         float alpha, float beta) {
+  using R = Rec<S>;
+  const uint32_t word = (kWide && d >= 32) ? xw[(d >> 5) - 1] : r.x;
+  const uint32_t wsh = word << (31 - (d & 31));   // bit 31: the edge sign
+  if constexpr (R::kSigned && !kPop && K == kMinSum) {
+    return __uint_as_float(R::pick(r, d) ^ (wsh & 0x80000000u));
+  } else {
+    uint32_t neg;   // bit 31: the sign product is negative
+    if (kPop) {
+      uint32_t x = r.x;
+      if (kWide) {
+        for (int k = 0; k < n_x; ++k) x ^= xw[k];
+      }
+      neg = parity(x) << 31;
+    } else {
+      neg = R::negmask(r);
+    }
+    return with_sign(adjust<K>(R::mag(r, d), alpha, beta), wsh ^ neg);
+  }
 }
 
 // Sum-product phase A for check c (`_row_pass_sp`); returns its parity.
 template <typename S, bool kWide>
-__device__ __forceinline__ int row_pass_sp(const Planes<S>& p, const Args& a,
+__device__ __forceinline__ int row_pass_sp(const Smem<S>& p, const Args& a,
                                            int c, int n_sw) {
   const int mb = c / a.z;
   const int i = c - mb * a.z;
@@ -326,7 +573,7 @@ __device__ __forceinline__ int row_pass_sp(const Planes<S>& p, const Args& a,
   const int deg = p.row_deg[mb];
   const int* rnb = p.row_nb + mb * a.dc;
   const int* rsh = p.row_shift + mb * a.dc;
-  S* stash = p.am + p.row_base[mb] * a.z + i;
+  S* stash = p.stash + p.row_base[mb] * a.z + i;
   for (int d0 = 0; d0 < deg; d0 += 32) {
     const uint32_t ob = cbits[d0 >> 5];
     uint32_t nbits = 0u;
@@ -353,20 +600,6 @@ __device__ __forceinline__ int row_pass_sp(const Planes<S>& p, const Args& a,
   return par;
 }
 
-// The c2v message of slot d of check c from its stored state (`_recon`).
-template <int K, typename S, bool kWide, bool kPop>
-__device__ __forceinline__ float stored_message(const Planes<S>& p,
-                                                const Args& a, int c, int d,
-                                                int n_sw) {
-  const uint32_t* cbits = p.bits + c * n_sw;
-  const uint32_t word = kWide ? cbits[d >> 5] : cbits[0];
-  const float sgn = (kPop ? parity_sign<kWide>(cbits, n_sw) : ld(p.sp[c])) *
-                    bit_sign(word, d & 31);
-  const float mag = (ld_raw(p.am[c]) == static_cast<float>(d)) ? ld(p.m2[c])
-                                                               : ld(p.m1[c]);
-  return sgn * adjust<K>(mag, a.alpha, a.beta);
-}
-
 // kWide: check degree above 32, ceil(dc/32) sign words per check; without
 // it the one-word layout compiles to the single-word code.  kPop is a
 // template parameter, not a flag of the launch: as a flag it halved the
@@ -375,13 +608,18 @@ __device__ __forceinline__ float stored_message(const Planes<S>& p,
 template <int K, typename S, bool kWide, bool kLayered, bool kPop>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   constexpr bool kSp = K == kSumProduct;
+  using R = Rec<S>;
+  using V = typename R::V;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_errors;
   const int n = a.n, m = a.m, z = a.z;
   const int n_tab = table_ints(a.mb_n, a.nb_n, a.dc, a.dv);
   const int n_sw = kWide ? sign_words(a.dc) : 1;
+  const int n_x = n_sw - 1;
+  const Layout<K, S, kLayered> lay(a);
   int* tab = reinterpret_cast<int*>(smem);
-  Planes<S> p;
+  Smem<S> p;
+  p.base = smem;
   p.row_deg = tab;
   p.row_base = p.row_deg + a.mb_n;
   p.row_nb = p.row_base + a.mb_n;
@@ -390,25 +628,48 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   p.col_mb = p.col_deg + a.nb_n;
   p.col_d = p.col_mb + a.nb_n * a.dv;
   p.col_shift = p.col_d + a.nb_n * a.dv;
-  p.bits = reinterpret_cast<uint32_t*>(tab + n_tab);
-  p.rbits = p.bits + m * n_sw;
-  p.rm1 = reinterpret_cast<float*>(p.rbits + (kLayered ? z * n_sw : 0));
+  p.rtab = reinterpret_cast<const int2*>(smem + lay.rtab);
+  p.ctab = reinterpret_cast<const int4*>(smem + lay.ctab);
+  p.rec = reinterpret_cast<V*>(smem + lay.rec);
+  p.xbits = reinterpret_cast<uint32_t*>(smem + lay.xbits);
+  p.rbits = reinterpret_cast<uint32_t*>(smem + lay.row);
+  p.rm1 = reinterpret_cast<float*>(p.rbits + z * n_sw);
   p.rm2 = p.rm1 + z;
   p.ram = p.rm2 + z;
   p.rsp = p.ram + z;
-  // min-sum family: m1 | m2 | am | sp (unless kPop); sum-product: S (in
-  // m1) | sp (in m2) | stash (in am)
-  p.m1 = reinterpret_cast<S*>(kLayered ? p.rsp + z
-                                       : reinterpret_cast<float*>(p.rbits));
-  p.m2 = p.m1 + m;
-  p.am = p.m2 + m;
-  p.sp = (kSp || kPop) ? nullptr : p.am + m;
-  p.chan = kSp ? p.am + a.n_edges * z : p.am + (kPop ? m : 2 * m);
-  p.tot = p.chan + n;
+  p.bits = reinterpret_cast<uint32_t*>(smem + lay.bits);
+  p.m1 = reinterpret_cast<S*>(smem + lay.sp_m1);
+  p.m2 = reinterpret_cast<S*>(smem + lay.sp_m2);
+  p.stash = reinterpret_cast<S*>(smem + lay.stash);
+  p.chan = reinterpret_cast<S*>(smem + lay.chan);
+  p.tot = reinterpret_cast<S*>(smem + lay.tot);
 
   const int tid = threadIdx.x;
   const int word = blockIdx.x;
   for (int k = tid; k < n_tab; k += kThreads) tab[k] = a.tables[k];
+  if (!kSp) {
+    // the packed tables, from the host's: row_nb | row_shift at 2*mb_n,
+    // col_mb | col_d | col_shift after col_deg
+    const int* g_nb = a.tables + 2 * a.mb_n;
+    const int* g_rsh = g_nb + a.mb_n * a.dc;
+    const int* g_cmb = g_rsh + a.mb_n * a.dc + a.nb_n;
+    const int* g_cd = g_cmb + a.nb_n * a.dv;
+    const int* g_csh = g_cd + a.nb_n * a.dv;
+    constexpr int sz = sizeof(S);
+    constexpr int rb = sizeof(V);
+    int2* rtab = reinterpret_cast<int2*>(smem + lay.rtab);
+    int4* ctab = reinterpret_cast<int4*>(smem + lay.ctab);
+    for (int k = tid; k < a.mb_n * a.dc; k += kThreads) {
+      const int s = g_rsh[k];
+      rtab[k] = make_int2(static_cast<int>(lay.tot) + (g_nb[k] * z + s) * sz,
+                          (z - s) * sz);
+    }
+    for (int k = tid; k < a.nb_n * a.dv; k += kThreads) {
+      const int s = g_csh[k];
+      ctab[k] = make_int4(static_cast<int>(lay.rec) + (g_cmb[k] * z - s) * rb,
+                          s * rb, g_cd[k], 0);
+    }
+  }
   const float* in = a.llr + static_cast<size_t>(word) * n;
   for (int v = tid; v < n; v += kThreads) {
     float x = in[v];
@@ -417,20 +678,21 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
     p.chan[v] = c;
     p.tot[v] = st<S>(-ld(c));   // decoders negate on entry
   }
-  for (int k = tid; k < m * n_sw; k += kThreads) p.bits[k] = 0u;
-  for (int c = tid; c < m; c += kThreads) {
-    if (kSp) {
+  if (kSp) {
+    for (int k = tid; k < m * n_sw; k += kThreads) p.bits[k] = 0u;
+    for (int c = tid; c < m; c += kThreads) {
       p.m1[c] = st<S>(kPhiMax);   // S = 38 with a 0 stash rebuilds c2v == 0
       p.m2[c] = st<S>(1.f);
-    } else {
-      p.m1[c] = st<S>(0.f);       // rebuilt c2v == 0 on the first iteration
-      p.m2[c] = st<S>(0.f);
-      p.am[c] = st_raw<S>(0.f);
-      if (!kPop) p.sp[c] = st<S>(1.f);
     }
-  }
-  if (kSp) {
-    for (int k = tid; k < a.n_edges * z; k += kThreads) p.am[k] = st<S>(0.f);
+    for (int k = tid; k < a.n_edges * z; k += kThreads) {
+      p.stash[k] = st<S>(0.f);
+    }
+  } else {
+    // m1 = m2 = 0: the rebuilt c2v is 0 on the first iteration
+    for (int c = tid; c < m; c += kThreads) {
+      p.rec[c] = R::pack(0u, 0.f, 0.f, 0, 0u);
+    }
+    for (int k = tid; k < m * n_x; k += kThreads) p.xbits[k] = 0u;
   }
   if (tid == 0) s_errors = 0;
   __syncthreads();
@@ -455,20 +717,39 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
         }
         bad |= par;
       }
-    } else {
-      // ---- phase A: syndrome of the current totals + new check state ----
+    } else if (kSp) {
       for (int c = tid; c < m; c += kThreads) {
-        if (kSp) {
-          bad |= row_pass_sp<S, kWide>(p, a, c, n_sw);
-        } else {
-          float n1, n2, nam, nsp;
-          bad |= row_stats<K, S, kWide, kPop>(p, a, c, n_sw,
-                                              p.bits + c * n_sw, n1, n2, nam,
-                                              nsp);
-          p.m1[c] = st<S>(n1);
-          p.m2[c] = st<S>(n2);
-          p.am[c] = st_raw<S>(nam);
-          if (!kPop) p.sp[c] = st<S>(nsp);
+        bad |= row_pass_sp<S, kWide>(p, a, c, n_sw);
+      }
+    } else {
+      // ---- phase A: syndrome of the current totals + new check state;
+      // a thread takes the checks i0 + q*h (q < kChecks) of block row mb ----
+      const int h = (z + kChecks - 1) / kChecks;
+      int mb = tid / h;
+      int i0 = tid - mb * h;
+      while (mb < a.mb_n) {
+        int i[kChecks];
+        uint32_t* xo[kChecks];
+#pragma unroll
+        for (int q = 0; q < kChecks; ++q) {
+          const int iq = i0 + q * h;
+          i[q] = iq < z ? iq : i0;   // past z: i0 again, not written
+          xo[q] = p.xbits + (mb * z + i[q]) * n_x;
+        }
+        Folded f[kChecks];
+        fold<K, S, kWide, kPop, kChecks>(p, a, mb, i, xo, f);
+#pragma unroll
+        for (int q = 0; q < kChecks; ++q) {
+          bad |= f[q].par;
+          if (i0 + q * h < z) {
+            p.rec[mb * z + i[q]] = R::pack(f[q].w0, f[q].n1, f[q].n2, f[q].am,
+                                           kPop ? 0u : f[q].neg);
+          }
+        }
+        i0 += kThreads;
+        while (i0 >= h) {
+          i0 -= h;
+          ++mb;
         }
       }
     }
@@ -483,13 +764,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
       for (int mb = 0; mb < a.mb_n; ++mb) {
         // (a) the row's new state into the row scratch
         for (int i = tid; i < z; i += kThreads) {
-          float n1, n2, nam, nsp;
-          row_stats<K, S, kWide, kPop>(p, a, mb * z + i, n_sw,
-                                       p.rbits + i * n_sw, n1, n2, nam, nsp);
-          p.rm1[i] = n1;
-          p.rm2[i] = n2;
-          p.ram[i] = nam;
-          p.rsp[i] = nsp;
+          const int ii[1] = {i};
+          uint32_t* const xo[1] = {p.rbits + i * n_sw + 1};
+          Folded f[1];
+          fold<K, S, kWide, kPop, 1>(p, a, mb, ii, xo, f);
+          p.rbits[i * n_sw] = f[0].w0;
+          p.rm1[i] = f[0].n1;
+          p.rm2[i] = f[0].n2;
+          p.ram[i] = static_cast<float>(f[0].am);
+          p.rsp[i] = f[0].neg ? -1.f : 1.f;
         }
         __syncthreads();
         // (c) totals += new c2v - old c2v, edge by edge in slot order; a
@@ -507,59 +790,99 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
           for (int d = d0; d < deg && rnb[d] == nb; ++d) {
             int i = j - rsh[d];
             if (i < 0) i += z;
+            const int c = mb * z + i;
             const uint32_t* nbits = p.rbits + i * n_sw;
             const float nmag =
                 (p.ram[i] == static_cast<float>(d)) ? p.rm2[i] : p.rm1[i];
             const float cn =
                 p.rsp[i] * bit_sign(kWide ? nbits[d >> 5] : nbits[0], d & 31) *
                 adjust<K>(nmag, a.alpha, a.beta);
-            const float co =
-                stored_message<K, S, kWide, kPop>(p, a, mb * z + i, d, n_sw);
+            const float co = message<K, S, kWide, kPop>(
+                p.rec[c], p.xbits + c * n_x, n_x, d, a.alpha, a.beta);
             t = ld(st<S>(__fadd_rn(t, __fsub_rn(cn, co))));
           }
           p.tot[v] = st<S>(t);
         }
         __syncthreads();
-        // (d) round the new state into the row's planes
+        // (d) round the new state into the row's records
         for (int i = tid; i < z; i += kThreads) {
           const int c = mb * z + i;
-          p.m1[c] = st<S>(p.rm1[i]);
-          p.m2[c] = st<S>(p.rm2[i]);
-          p.am[c] = st_raw<S>(p.ram[i]);
-          if (!kPop) p.sp[c] = st<S>(p.rsp[i]);
-          for (int w = 0; w < n_sw; ++w) {
-            p.bits[c * n_sw + w] = p.rbits[i * n_sw + w];
+          p.rec[c] = R::pack(p.rbits[i * n_sw], p.rm1[i], p.rm2[i],
+                             static_cast<int>(p.ram[i]),
+                             kPop ? 0u : static_cast<uint32_t>(p.rsp[i] < 0.f));
+          for (int w = 1; w < n_sw; ++w) {
+            p.xbits[c * n_x + w - 1] = p.rbits[i * n_sw + w];
           }
         }
       }
       continue;
     }
     // ---- phase B: totals = -chan + sum of the rebuilt c2v messages ----
-    for (int v = tid; v < n; v += kThreads) {
-      const int nb = v / z;
-      const int j = v - nb * z;
-      float acc = -ld(p.chan[v]);
-      const int deg = p.col_deg[nb];
-      for (int k = 0; k < deg; ++k) {
-        const int e = nb * a.dv + k;
-        const int d = p.col_d[e];
-        int i = j - p.col_shift[e];
-        if (i < 0) i += z;
-        const int cmb = p.col_mb[e];
-        const int c = cmb * z + i;
-        float msg;
-        if (kSp) {
-          const uint32_t w =
-              kWide ? p.bits[c * n_sw + (d >> 5)] : p.bits[c];
-          msg = ld(p.m2[c]) * bit_sign(w, d & 31) *
-                phi(clip_phi(ld(p.m1[c]) -
-                             ld(p.am[(p.row_base[cmb] + d) * z + i])));
-        } else {
-          msg = stored_message<K, S, kWide, kPop>(p, a, c, d, n_sw);
+    if (kSp) {
+      for (int v = tid; v < n; v += kThreads) {
+        const int nb = v / z;
+        const int j = v - nb * z;
+        float acc = -ld(p.chan[v]);
+        const int deg = p.col_deg[nb];
+        for (int k = 0; k < deg; ++k) {
+          const int e = nb * a.dv + k;
+          const int d = p.col_d[e];
+          int i = j - p.col_shift[e];
+          if (i < 0) i += z;
+          const int cmb = p.col_mb[e];
+          const int c = cmb * z + i;
+          const uint32_t w = kWide ? p.bits[c * n_sw + (d >> 5)] : p.bits[c];
+          acc = acc + ld(p.m2[c]) * bit_sign(w, d & 31) *
+                          phi(clip_phi(ld(p.m1[c]) -
+                                       ld(p.stash[(p.row_base[cmb] + d) * z +
+                                                  i])));
         }
-        acc = acc + msg;
+        p.tot[v] = st<S>(acc);
       }
-      p.tot[v] = st<S>(acc);
+    } else {
+      // a thread takes the variables j0 + q*h (q < kVars) of block column
+      // nb; each sums its messages in the column's order
+      constexpr int rb = sizeof(V);
+      const int zr = z * rb;
+      const int h = (z + kVars - 1) / kVars;
+      int nb = tid / h;
+      int j0 = tid - nb * h;
+      while (nb < a.nb_n) {
+        int v[kVars], jr[kVars];
+        float acc[kVars];
+#pragma unroll
+        for (int q = 0; q < kVars; ++q) {
+          const int jq = j0 + q * h;
+          const int j = jq < z ? jq : j0;   // past z: j0 again, not written
+          v[q] = nb * z + j;
+          jr[q] = j * rb;
+          acc[q] = -ld(p.chan[v[q]]);
+        }
+        const int deg = p.col_deg[nb];
+        const int4* ct = p.ctab + nb * a.dv;
+        for (int k = 0; k < deg; ++k) {
+          const int4 e = ct[k];
+#pragma unroll
+          for (int q = 0; q < kVars; ++q) {
+            const int off = jr[q] < e.y ? e.x + jr[q] + zr : e.x + jr[q];
+            const V r = *reinterpret_cast<const V*>(p.base + off);
+            const uint32_t* xw =
+                kWide ? p.xbits + (off - static_cast<int>(lay.rec)) / rb * n_x
+                      : nullptr;
+            acc[q] = acc[q] + message<K, S, kWide, kPop>(r, xw, n_x, e.z,
+                                                         a.alpha, a.beta);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kVars; ++q) {
+          if (j0 + q * h < z) p.tot[v[q]] = st<S>(acc[q]);
+        }
+        j0 += kThreads;
+        while (j0 >= h) {
+          j0 -= h;
+          ++nb;
+        }
+      }
     }
     __syncthreads();
   }
@@ -578,19 +901,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
 }
 
 template <int K, typename S, bool kLayered, bool kPop>
-long long smem_bytes(const Args& a) {
-  const long long sw = sign_words(a.dc);
-  const long long planes =
-      K == kSumProduct ? 2LL * a.m + 1LL * a.n_edges * a.z + 2LL * a.n
-                       : (kPop ? 3LL : 4LL) * a.m + 2LL * a.n;
-  const long long row = kLayered ? 1LL * a.z * (sw + 4) : 0;
-  return 4LL * (table_ints(a.mb_n, a.nb_n, a.dc, a.dv) + a.m * sw + row) +
-         static_cast<long long>(sizeof(S)) * planes;
-}
-
-template <int K, typename S, bool kLayered, bool kPop>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  const long long smem = smem_bytes<K, S, kLayered, kPop>(a);
+  const long long smem = Layout<K, S, kLayered>(a).total;
   const auto kernel = a.dc > 32 ? decode_kernel<K, S, true, kLayered, kPop>
                                 : decode_kernel<K, S, false, kLayered, kPop>;
   cudaError_t err = cudaFuncSetAttribute(

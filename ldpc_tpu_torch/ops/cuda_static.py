@@ -148,20 +148,29 @@ def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
                store: str = "bfloat16", schedule: str = "flooding",
                popcount_sign: bool = False) -> int:
     """Dynamic shared memory of one block (as ``csrc/decode.cu`` sizes
-    it): the tables and sign words (4 bytes each), the layered schedule's
-    row scratch (z x (sign words + 4) 32-bit words), then the state planes
-    in the store type (popcount_sign drops the sign-product plane)."""
+    it): the host's edge tables (4 bytes an entry), then for the min-sum
+    family, from a 16-byte boundary, the packed column and row tables (16
+    and 8 bytes an entry), one record per check (16 bytes in bfloat16 and
+    float32, 8 in int8; the sign product is a bit of it, so popcount_sign
+    changes nothing), the sign words past the first (4 bytes each) and the
+    layered schedule's row scratch (z x (sign words + 4) 32-bit words); for
+    sum-product the sign words and its planes in the store; then the
+    channel and total planes in the store."""
     _check_kind(kind)
     sw = _sign_words(plan)
     n_tab = (plan.block_rows * (2 + 2 * plan.dmax_cn) +
              plan.block_cols * (1 + 3 * plan.dmax_vn))
-    if kind == "sum-product":
-        planes = 2 * plan.m + _n_edges(plan) * plan.z + 2 * plan.n
-    else:
-        planes = (3 if popcount_sign else 4) * plan.m + 2 * plan.n
-    row = plan.z * (sw + 4) if schedule == "layered" else 0
     width = STORES[_store_name(store)].itemsize
-    return 4 * (n_tab + plan.m * sw + row) + width * planes
+    planes = 2 * width * plan.n
+    if kind == "sum-product":
+        return (4 * (n_tab + plan.m * sw) +
+                width * (2 * plan.m + _n_edges(plan) * plan.z) + planes)
+    record = 8 if _store_name(store) == "int8" else 16
+    row = 4 * plan.z * (sw + 4) if schedule == "layered" else 0
+    return (-(-4 * n_tab // 16) * 16 +
+            16 * plan.block_cols * plan.dmax_vn +
+            8 * plan.block_rows * plan.dmax_cn +
+            record * plan.m + 4 * plan.m * (sw - 1) + row + planes)
 
 
 class _RefTables:

@@ -1,0 +1,275 @@
+"""Count the SASS of the fused kernel's flooding edge loops, on the card's
+toolkit.
+
+``csrc/decode.cu`` is compiled to a cubin with the kernel's ``nvcc``
+flags for ``sm_90a`` and read with ``cuobjdump -sass``.  In the min-sum
+flooding instances (B1: ``decode_kernel<0, __nv_bfloat16, false, false,
+false>``, and its float32 twin) the script finds every loop by its
+back-edge branch (a ``BRA`` to an address at or before its own) and keeps
+the innermost ones, those that hold no other loop.  Of these, the edge
+loop of phase A (the two-min fold over a check's slots) is one that holds
+an ``FMNMX`` and no global load; the edge loop of phase B (the sum of a
+variable's messages) is one that holds no ``FMNMX`` and no global load, a
+shared load and an accumulating float add: an ``FADD`` (or the addend of an
+``FFMA``) whose register is carried around the loop, or is the result of
+such an add earlier in the body.
+
+For each loop body it reports the SASS instructions, the shared-memory
+instructions (``LDS*``/``STS*``) by opcode, the conversions (``F2F``,
+``F2FP``, ``F2I``, ``I2F``, ``I2FP``, ``FRND``) and the edges the body
+handles: in phase A the ``FMNMX`` over 2 (each edge updates the first and
+the second minimum, ``fminf`` each, in every version of the fold), in
+phase B the accumulating adds (one for each edge's message).  Where a
+phase has several such loops (an unrolled body and its remainder), its
+line is the loop with the most edges a body.
+
+On the machine with the toolkit::
+
+    python -m ldpc_tpu_torch.scripts.edge_sass [--source PATH]
+
+prints one JSON line: per instance, each phase's shared instructions an
+edge, instructions an edge and the loop's counts, the sum over the two
+phases, and ``nvcc --version``'s last line.  ``--source`` counts another
+``decode.cu`` (another revision's, unpacked with ``git archive``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+
+from ..csrc import NVCC_FLAGS, _nvcc
+from .phi_sass import _cuobjdump, _run
+
+_DECODE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / \
+    "decode.cu"
+# mangled template arguments of decode_kernel<K, S, kWide, kLayered, kPop>
+_TYPES = {"13__nv_bfloat16": "bfloat16", "f": "float32", "a": "int8"}
+_KERNEL = re.compile(r"decode_kernelILi(\d+)E(13__nv_bfloat16|f|a)"
+                     r"Lb([01])ELb([01])ELb([01])E")
+# the instances counted: min-sum, flooding, check degree <= 32, stored sign
+INSTANCES = {"B1 bfloat16": (0, "bfloat16", 0, 0, 0),
+             "B1 float32": (0, "float32", 0, 0, 0)}
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                   r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);")
+_REG = re.compile(r"\bR(\d+)\b")
+_CONVERSIONS = {"F2F", "F2FP", "F2I", "I2F", "I2FP", "FRND"}
+_GLOBAL = {"LDG", "LD", "LDGSTS", "STG", "ST"}
+
+Insn = collections.namedtuple("Insn", "addr pred op mods operands")
+
+
+def parse(sass: str) -> dict[str, list[Insn]]:
+    """The instructions of each function of a ``cuobjdump -sass`` listing,
+    NOPs left out."""
+    out: dict[str, list[Insn]] = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = _INSN.search(line)
+        if m and current is not None and m.group(3) != "NOP":
+            current.append(Insn(int(m.group(1), 16),
+                                (m.group(2) or "").strip(), m.group(3),
+                                m.group(4), m.group(5).strip()))
+    return out
+
+
+def _branch_target(insn: Insn) -> int | None:
+    if insn.op != "BRA":
+        return None
+    hexes = re.findall(r"0x([0-9a-f]+)", insn.operands)
+    return int(hexes[-1], 16) if hexes else None
+
+
+def innermost_loops(insns: list[Insn]) -> list[list[Insn]]:
+    """The bodies of the loops that hold no other loop, in address order:
+    a loop is a back-edge branch and the instructions from its target to
+    it."""
+    spans = []
+    for insn in insns:
+        t = _branch_target(insn)
+        if t is not None and t <= insn.addr:
+            spans.append((t, insn.addr))
+    inner = [s for s in spans
+             if not any(o != s and s[0] <= o[0] and o[1] <= s[1]
+                        for o in spans)]
+    return [[i for i in insns if lo <= i.addr <= hi]
+            for lo, hi in sorted(set(inner))]
+
+
+def _regs(text: str) -> list[int]:
+    return [int(r) for r in _REG.findall(text)]
+
+
+def _dests(insn: Insn) -> list[int]:
+    """Registers an instruction writes: its first operand, widened by a
+    .64/.128/.WIDE modifier; stores and branches write none."""
+    if insn.op.startswith(("ST", "RED", "BRA", "BAR", "EXIT")):
+        return []
+    regs = _regs(insn.operands.split(",")[0])
+    width = (4 if ".128" in insn.mods else
+             2 if ".64" in insn.mods or ".WIDE" in insn.mods else 1)
+    return [r + k for r in regs[:1] for k in range(width)]
+
+
+def _srcs(insn: Insn) -> list[int]:
+    ops = insn.operands.split(",")
+    return _regs(",".join(ops if not _dests(insn) else ops[1:]))
+
+
+def accumulating_adds(body: list[Insn]) -> int:
+    """Float adds whose accumulator is carried around the loop: an FADD with
+    a source register that the body reads before it writes it and writes
+    later (or that such an add wrote earlier in the body), or an FFMA whose
+    addend is such a register."""
+    written, read_first = set(), set()
+    for insn in body:
+        read_first.update(r for r in _srcs(insn) if r not in written)
+        written.update(_dests(insn))
+    acc = read_first & written
+    count = 0
+    for insn in body:
+        if insn.op not in ("FADD", "FFMA"):
+            continue
+        ops = [o.strip() for o in insn.operands.split(",")]
+        srcs = ops[1:] if insn.op == "FADD" else ops[3:4]
+        if any(r in acc for s in srcs for r in _regs(s)):
+            count += 1
+            acc.update(_regs(ops[0]))
+    return count
+
+
+def loop_counts(body: list[Insn]) -> dict:
+    """Instructions, shared-memory instructions by opcode, conversions and
+    the float opcodes that classify a loop body."""
+    ops = collections.Counter(i.op + i.mods for i in body)
+    shared = {k: v for k, v in ops.items()
+              if k.startswith(("LDS", "STS"))}
+    return {"start": hex(body[0].addr), "end": hex(body[-1].addr),
+            "instructions": len(body),
+            "shared": sum(shared.values()),
+            "shared_by_opcode": dict(sorted(shared.items())),
+            "conversions": sum(1 for i in body if i.op in _CONVERSIONS),
+            "fmnmx": sum(1 for i in body if i.op == "FMNMX"),
+            "accumulating_adds": accumulating_adds(body),
+            "global": sum(1 for i in body if i.op in _GLOBAL)}
+
+
+def classify(c: dict) -> str | None:
+    """Phase "A", "B" or None (another loop) of a loop's counts."""
+    if c["global"]:
+        return None
+    if c["fmnmx"]:
+        return "A"
+    if c["accumulating_adds"] and c["shared"]:
+        return "B"
+    return None
+
+
+def edge_loops(insns: list[Insn]) -> dict:
+    """Each phase's edge loop (the one with the most edges a body) with its
+    edges and per-edge counts, the other candidates, and the sum of the two
+    phases' shared instructions an edge."""
+    res: dict = {"loops": []}
+    for body in innermost_loops(insns):
+        c = loop_counts(body)
+        phase = classify(c)
+        if phase is None:
+            continue
+        edges = (c["fmnmx"] / 2 if phase == "A"
+                 else c["accumulating_adds"])
+        c.update(phase=phase, edges=edges,
+                 shared_per_edge=c["shared"] / edges,
+                 instructions_per_edge=c["instructions"] / edges)
+        res["loops"].append(c)
+    for phase in ("A", "B"):
+        cands = [c for c in res["loops"] if c["phase"] == phase]
+        res[phase] = max(cands, key=lambda c: c["edges"]) if cands else None
+    if res["A"] and res["B"]:
+        res["shared_per_edge"] = (res["A"]["shared_per_edge"] +
+                                  res["B"]["shared_per_edge"])
+        res["instructions_per_edge"] = (res["A"]["instructions_per_edge"] +
+                                        res["B"]["instructions_per_edge"])
+    return res
+
+
+def instance_name(mangled: str) -> str | None:
+    """``decode_kernel<K, S, kWide, kLayered, kPop>`` of a mangled name."""
+    m = _KERNEL.search(mangled)
+    if not m:
+        return None
+    k, s, w, lay, pop = m.groups()
+    return (f"decode_kernel<{k}, {_TYPES[s]}, {bool(int(w))}, "
+            f"{bool(int(lay))}, {bool(int(pop))}>")
+
+
+def analyse(sass: str) -> dict:
+    """The edge loops of each counted instance in a listing."""
+    funcs = {instance_name(k): v for k, v in parse(sass).items()}
+    out = {}
+    for label, (k, s, w, lay, pop) in INSTANCES.items():
+        name = (f"decode_kernel<{k}, {s}, {bool(w)}, {bool(lay)}, "
+                f"{bool(pop)}>")
+        if name not in funcs:
+            raise RuntimeError(f"{name} is not in the listing")
+        res = edge_loops(funcs[name])
+        if res["A"] is None or res["B"] is None:
+            raise RuntimeError(f"{name}: no edge loop of phase "
+                               f"{'A' if res['A'] is None else 'B'}")
+        out[label] = res
+    return out
+
+
+def count(path: pathlib.Path = _DECODE) -> dict:
+    """Compile ``path`` to a cubin and count its edge loops; raises where
+    ``nvcc`` or ``cuobjdump`` fails or a loop is not found."""
+    nvcc = _nvcc()
+    cuobjdump = _cuobjdump(nvcc)
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = pathlib.Path(tmp) / "decode.cubin"
+        _run([nvcc, *flags, "-cubin", "-o", str(cubin), str(path)])
+        sass = _run([cuobjdump, "-sass", str(cubin)])
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    res = analyse(sass)
+    res["source"] = str(path)
+    res["nvcc"] = version.splitlines()[-1] if version else ""
+    return res
+
+
+def summary(res: dict) -> str:
+    """One line: each instance's shared instructions an edge, per phase."""
+    parts = []
+    for label in INSTANCES:
+        r = res[label]
+        parts.append(
+            f"{label}: phase A {r['A']['shared_per_edge']:.3g} shared "
+            f"({r['A']['instructions_per_edge']:.3g} instructions) an edge, "
+            f"phase B {r['B']['shared_per_edge']:.3g} "
+            f"({r['B']['instructions_per_edge']:.3g}), "
+            f"{r['shared_per_edge']:.3g} in all")
+    return "; ".join(parts)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", type=pathlib.Path, default=_DECODE)
+    args = ap.parse_args(argv)
+    res = count(args.source)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -144,13 +144,31 @@ def test_kernel_tables_walk_the_tanner_graph(ref):
     assert np.array_equal(h_col, code.to_dense())
 
 
-@pytest.mark.parametrize("kind,store,state", [
-    ("min-sum", "bfloat16", 44968), ("normalized-min-sum", "bfloat16", 44968),
-    ("min-sum", "float32", 85848), ("offset-min-sum", "float32", 85848),
-    ("sum-product", "bfloat16", 106288), ("sum-product", "float32", 208488)])
-def test_near_earth_state_fits_one_block(kind, store, state):
-    """One word's kernel state in shared memory, plus 1,360 bytes of edge
-    tables, under a block's 227 KB (232,448 bytes) for every variant."""
+# bytes a block: min-sum: 1,360 bytes of edge tables, padded to 16, + 1,024
+# + 512 of packed column and row tables + 1,022 records of 16 bytes (bf16,
+# f32) + 2 x 8,176 x the store's width (chan, totals); sum-product: the
+# tables + 1,022 sign words + (2 x 1,022 + 64 x 511 + 2 x 8,176) x width
+@pytest.mark.parametrize("kind,store,total", [
+    ("min-sum", "bfloat16", 51952), ("normalized-min-sum", "bfloat16", 51952),
+    ("min-sum", "float32", 84656), ("offset-min-sum", "float32", 84656),
+    ("sum-product", "bfloat16", 107648), ("sum-product", "float32", 209848)])
+def test_near_earth_state_fits_one_block(kind, store, total):
+    """One word's kernel state in shared memory, edge tables included,
+    under a block's 227 KB (232,448 bytes) for every variant."""
     got = smem_bytes(DecodePlan.from_code(near_earth_code()), kind, store)
-    assert got == state + 1360
+    assert got == total
     assert got <= 232448 - 1024
+
+
+# An H100 SM has 228 KB (233,472 bytes) of shared memory, and each block
+# takes 1 KB more than it asks for.
+@pytest.mark.parametrize("store,blocks", [("bfloat16", 4), ("int8", 4),
+                                          ("float32", 2)])
+@pytest.mark.parametrize("popcount", [False, True])
+def test_near_earth_min_sum_fits_its_blocks_an_sm(store, blocks, popcount):
+    """Near-earth min-sum flooding keeps four resident blocks an SM in bf16
+    and int8, two in f32."""
+    got = smem_bytes(DecodePlan.from_code(near_earth_code()), "min-sum",
+                     store, "flooding", popcount)
+    assert blocks * (got + 1024) <= 233_472
+

@@ -1,0 +1,160 @@
+"""The edge-loop SASS counter of the fused kernel
+(``ldpc_tpu_torch/scripts/edge_sass.py``) on canned ``cuobjdump -sass``
+listings; the count itself needs the card's toolkit (``tests/test_torch_gpu
+.py``)."""
+
+import pytest
+
+from ldpc_tpu_torch.scripts import edge_sass
+
+_B1 = "_ZN12_GLOBAL__N_113decode_kernelILi0E13__nv_bfloat16Lb0ELb0ELb0EEEvNS_4ArgsE"
+_F32 = "_ZN12_GLOBAL__N_113decode_kernelILi0EfLb0ELb0ELb0EEEvNS_4ArgsE"
+
+# a phase-A loop (0x10-0x90: two edges, 2 FMNMX each, 3 shared loads), a
+# phase-B loop (0xb0-0x110: two accumulating FADDs, 3 shared loads, a
+# conversion), an init loop with a global load (0x130-0x160) and an error
+# count loop with no float add (0x170-0x1a0)
+_BODY = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.64 R10, [R3] ;
+        /*0020*/                   LDS.U16 R4, [R2] ;
+        /*0030*/                   LDS.U16 R5, [R2+0x200] ;
+        /*0040*/                   FADD R6, R4, -R7 ;
+        /*0050*/                   FMNMX R8, R8, |R6|, PT ;
+        /*0060*/               @P1 FMNMX R9, |R6|, R9, PT ;
+        /*0070*/                   FMNMX R12, R12, |R5|, PT ;
+        /*0080*/                   FMNMX R13, |R5|, R13, PT ;
+        /*0090*/              @P0 BRA 0x10 ;
+        /*00a0*/                   STS.128 [R2], R8 ;
+        /*00b0*/                   LDS.128 R12, [R3+0x10] ;
+        /*00c0*/                   LDS.128 R16, [R2+0x10] ;
+        /*00d0*/                   LDS.128 R24, [R2+0x810] ;
+        /*00e0*/                   LOP3.LUT R20, R17, 0x7fff0000, RZ, 0xc0, !PT ;
+        /*00f0*/                   FADD R21, R21, R20 ;
+        /*0100*/                   FADD R22, R22, R25 ;
+        /*0110*/              @!P1 BRA 0xb0 ;
+        /*0120*/                   F2FP.BF16.F32.PACK_AB R23, RZ, R21 ;
+        /*0130*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0140*/                   FMNMX R4, R4, 1e+30, PT ;
+        /*0150*/                   STS.U16 [R5], R4 ;
+        /*0160*/              @P2 BRA 0x130 ;
+        /*0170*/                   LDS.U16 R4, [R5] ;
+        /*0180*/                   FSETP.GEU.AND P3, PT, R4, RZ, PT ;
+        /*0190*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*01a0*/              @P4 BRA 0x170 ;
+        /*01b0*/                   EXIT ;
+        /*01c0*/                   BRA 0x1c0;
+"""
+
+
+def _listing(names=(_B1, _F32)):
+    return "\n\tcode for sm_90a\n" + "".join(
+        f"\t\tFunction : {n}\n{_BODY}" for n in names)
+
+
+def test_parse_drops_nops_and_keeps_predicates():
+    funcs = edge_sass.parse(_listing((_B1,)) + "        /*01d0*/    NOP;\n")
+    insns = funcs[_B1]
+    assert len(insns) == 29
+    assert insns[6].op == "FMNMX" and insns[6].pred == "@P1"
+    assert insns[2].op == "LDS" and insns[2].mods == ".U16"
+
+
+def test_innermost_loops_follow_back_edges():
+    insns = edge_sass.parse(_listing((_B1,)))[_B1]
+    loops = edge_sass.innermost_loops(insns)
+    # the BRA to itself at 0x1c0 is a loop of one instruction
+    assert [(hex(b[0].addr), hex(b[-1].addr)) for b in loops] == [
+        ("0x10", "0x90"), ("0xb0", "0x110"), ("0x130", "0x160"),
+        ("0x170", "0x1a0"), ("0x1c0", "0x1c0")]
+
+
+def test_an_outer_loop_is_not_innermost():
+    listing = """
+        Function : k
+        /*0000*/                   IADD3 R1, R1, 0x1, RZ ;
+        /*0010*/                   FADD R2, R2, R3 ;
+        /*0020*/              @P0 BRA 0x10 ;
+        /*0030*/              @P1 BRA 0x0 ;
+"""
+    loops = edge_sass.innermost_loops(edge_sass.parse(listing)["k"])
+    assert [len(b) for b in loops] == [2]
+
+
+def test_accumulating_adds_follow_loop_carried_registers():
+    listing = """
+        Function : k
+        /*0000*/                   LDS R4, [R2] ;
+        /*0010*/                   FADD R5, R4, R4 ;
+        /*0020*/                   FFMA R6, R4, -2, 1 ;
+        /*0030*/                   FFMA R7, R4, R6, R7 ;
+        /*0040*/                   FADD R8, R7, R5 ;
+        /*0050*/                   MOV R7, R8 ;
+        /*0060*/              @P0 BRA 0x0 ;
+"""
+    body = edge_sass.parse(listing)["k"]
+    # R7 is carried: FFMA R7 (addend R7) and FADD R8 (from R7) accumulate;
+    # FADD R5 and FFMA R6 work on the loaded value only
+    assert edge_sass.accumulating_adds(body) == 2
+
+
+def test_edge_loops_count_shared_instructions_an_edge():
+    res = edge_sass.edge_loops(edge_sass.parse(_listing((_B1,)))[_B1])
+    assert [c["phase"] for c in res["loops"]] == ["A", "B"]
+    a, b = res["A"], res["B"]
+    assert (a["instructions"], a["shared"], a["edges"]) == (9, 3, 2)
+    assert a["shared_by_opcode"] == {"LDS.64": 1, "LDS.U16": 2}
+    assert a["shared_per_edge"] == 1.5
+    assert (b["instructions"], b["shared"], b["edges"]) == (7, 3, 2)
+    assert b["shared_by_opcode"] == {"LDS.128": 3}
+    assert b["conversions"] == 0 and b["accumulating_adds"] == 2
+    assert res["shared_per_edge"] == 3.0
+    assert res["instructions_per_edge"] == pytest.approx(9 / 2 + 7 / 2)
+
+
+def test_stores_and_conversions_are_counted():
+    listing = """
+        Function : k
+        /*0000*/                   LDS.U16 R4, [R2] ;
+        /*0010*/                   I2FP.F32.U32 R5, R4 ;
+        /*0020*/                   FMNMX R6, R6, |R5|, PT ;
+        /*0030*/                   FMNMX R7, R7, |R5|, PT ;
+        /*0040*/                   STS [R3], R6 ;
+        /*0050*/                   F2FP.BF16.F32.PACK_AB R8, RZ, R6 ;
+        /*0060*/              @P0 BRA 0x0 ;
+"""
+    c = edge_sass.loop_counts(edge_sass.parse(listing)["k"])
+    assert c["shared_by_opcode"] == {"LDS.U16": 1, "STS": 1}
+    assert c["conversions"] == 2 and edge_sass.classify(c) == "A"
+
+
+def test_instance_names_from_mangled_names():
+    assert (edge_sass.instance_name(_B1) ==
+            "decode_kernel<0, bfloat16, False, False, False>")
+    assert (edge_sass.instance_name(
+        "_ZN12_GLOBAL__N_113decode_kernelILi2EaLb1ELb1ELb0EEEvNS_4ArgsE") ==
+        "decode_kernel<2, int8, True, True, False>")
+    assert edge_sass.instance_name("_Z8split_rv") is None
+
+
+def test_analyse_and_summary():
+    res = edge_sass.analyse(_listing())
+    assert set(res) == set(edge_sass.INSTANCES)
+    line = edge_sass.summary(res)
+    assert "B1 bfloat16: phase A 1.5 shared" in line and "3 in all" in line
+
+
+def test_analyse_raises_without_an_instance_or_a_loop():
+    with pytest.raises(RuntimeError, match="not in the listing"):
+        edge_sass.analyse(_listing((_B1,)))
+    no_loop = "\n\t\tFunction : {}\n        /*0000*/  EXIT ;\n"
+    with pytest.raises(RuntimeError, match="no edge loop of phase A"):
+        edge_sass.analyse(no_loop.format(_B1) + no_loop.format(_F32))
+
+
+def test_count_raises_without_the_toolkit(monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(edge_sass, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        edge_sass.count()

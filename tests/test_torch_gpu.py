@@ -172,6 +172,60 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 # ---- kernel B7, the phase-split pair (csrc/split.cu), and B8 ----
 
+# The flooding loops of B1 and of the instances that share them (f32, int8,
+# popcount_sign): every word equal to the plain version, converged or not,
+# for odd batches, clean and noisy words interleaved (so that words which
+# converge at different iterations share the launch), no or one iteration,
+# and NaN/+-inf LLRs.
+B1_INSTANCES = [("bfloat16", False), ("float32", False), ("int8", False),
+                ("bfloat16", True)]
+B1_CODES = {"near-earth": (near_earth_code(), (2.5, 3.2, 4.0)),
+            "wifi r1/2": (wifi_code(1944, 1 / 2), (-1.0, 0.5, 2.0))}
+
+
+def _mixed_llr(n, words, snrs, seed, device):
+    """Word w is the clean all-zero codeword (-1 a bit) when w % 4 == 0,
+    else noisy at snrs[w % 4 - 1]; the second word (the only one, alone)
+    carries NaN, +inf and -inf."""
+    rng = np.random.default_rng(seed)
+    llr = np.full((words, n), -1.0, np.float32)
+    for w in range(words):
+        if w % 4:
+            sigma = np.sqrt(0.5 / 10 ** (snrs[w % 4 - 1] / 10))
+            llr[w] += sigma * rng.standard_normal(n).astype(np.float32)
+    llr[min(1, words - 1), 5:8] = [np.nan, np.inf, -np.inf]
+    return torch.from_numpy(llr).to(device)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 20])
+@pytest.mark.parametrize("batch", [1, 3, 129])
+@pytest.mark.parametrize("store,popcount", B1_INSTANCES)
+@pytest.mark.parametrize("code", list(B1_CODES))
+def test_flooding_loops_match_plain_version_on_every_word(
+        cuda, code, store, popcount, batch, max_iters):
+    qc, snrs = B1_CODES[code]
+    llr = _mixed_llr(qc.n, batch, snrs, 97 + batch, cuda)
+    dec = make_static_sweep_decoder(qc, max_iters, store_dtype=store,
+                                    popcount_sign=popcount, device=cuda)
+    got = dec(llr)
+    want = flooding_reference(llr, dec.plan, max_iters, store_dtype=store,
+                              popcount_sign=popcount)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if batch == 129 and max_iters == 20:
+        iters = got[1][got[2]]
+        assert len(set(iters.tolist())) > 1 and not got[2].all()
+
+
+def test_edge_sass_counts_the_b1_loops(cuda):
+    from ldpc_tpu_torch.scripts import edge_sass
+    res = edge_sass.count()
+    for label in edge_sass.INSTANCES:
+        r = res[label]
+        assert r["A"]["edges"] >= 1 and r["B"]["edges"] >= 1
+        assert r["shared_per_edge"] <= 3
+
+
 def _finite_llr(n, snrs, per, seed, device):
     """As _llr without the non-finite entries: the split decoder, as the
     Pallas pair, does not sanitise them and the fused kernel does."""

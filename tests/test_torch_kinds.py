@@ -102,10 +102,14 @@ def test_high_degree_checks_match_pallas(kind, store):
 def test_high_degree_smem_counts_two_sign_words():
     plan = DecodePlan.from_code(code_from_dict(code_to_dict(
         _high_degree_jax_code())))
+    # the second sign word of each check lies beside its record
     one_word = smem_bytes(plan, "min-sum", "float32") - 4 * plan.m
-    assert one_word == 4 * (plan.block_rows * (2 + 2 * plan.dmax_cn) +
-                            plan.block_cols * (1 + 3 * plan.dmax_vn) +
-                            plan.m) + 4 * (4 * plan.m + 2 * plan.n)
+    n_tab = (plan.block_rows * (2 + 2 * plan.dmax_cn) +
+             plan.block_cols * (1 + 3 * plan.dmax_vn))
+    assert one_word == (-(-4 * n_tab // 16) * 16 +
+                        16 * plan.block_cols * plan.dmax_vn +
+                        8 * plan.block_rows * plan.dmax_cn +
+                        16 * plan.m + 4 * 2 * plan.n)
 
 
 @pytest.mark.parametrize("kind", ["normalized-min-sum", "offset-min-sum"])

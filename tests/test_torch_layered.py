@@ -166,4 +166,5 @@ def test_layered_smem_adds_the_row_scratch():
         extra = (smem_bytes(plan, "min-sum", store, "layered") -
                  smem_bytes(plan, "min-sum", store))
         assert extra == 10_220
-    assert smem_bytes(plan, "min-sum", "bfloat16", "layered") == 56_548
+    # flooding's 51,952 + the row scratch's 10,220
+    assert smem_bytes(plan, "min-sum", "bfloat16", "layered") == 62_172
