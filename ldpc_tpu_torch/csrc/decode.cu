@@ -410,9 +410,10 @@ struct Smem {
   const int* col_d;
   const int* col_shift;
   // min-sum family: per (block row, slot) the byte offset of the total of
-  // check i = 0 and the wrap threshold i * sizeof(S); per (block column,
-  // column slot) the byte offset of the record of variable j = 0, the shift
-  // in record bytes and the row slot
+  // check i = 0 and the wrap threshold (z - shift) * sizeof(S), against
+  // which i * sizeof(S) is compared; per (block column, column slot) the
+  // byte offset of the record of variable j = 0, the shift in record bytes
+  // and the row slot
   const int2* rtab;
   const int4* ctab;
   typename Rec<S>::V* rec;

@@ -41,7 +41,7 @@ _HEADER = r"""
 #define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 #include <algorithm>
 #include <atomic>
