@@ -106,10 +106,10 @@ no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/).
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import re
 import sys
-import threading
 import time
 import traceback
 
@@ -406,11 +406,10 @@ def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
     sources = ("decode", "split", "barrier_probe", "microbench")
     # the edge loops' cubin compiles beside the build, in a thread of its own
-    edges: dict = {}
-    counter = threading.Thread(
-        target=lambda: edges.update(res=_edge_count()), daemon=True)
-    counter.start()
-    build(*sources)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        edges = pool.submit(edge_sass.count)
+        build(*sources)
+    res = edges.result()
     reps = {}
     for name in sources:
         rep = reps[name] = build_report(name)
@@ -431,24 +430,12 @@ def phase_build() -> dict:
         f"argument ({phi['predicated_flops']} more predicated, for some; "
         f"{phi['instructions']} SASS instructions; {phi['nvcc']}): "
         f"{phi['by_opcode']}")
-    counter.join()
-    res = edges.get("res")
-    if isinstance(res, BaseException):
-        raise res
     log("build", f"edge loops: {edge_sass.summary(res)}; shared "
         "instructions by opcode (A, B): " + "; ".join(
             f"{k} {res[k]['A']['shared_by_opcode']}, "
             f"{res[k]['B']['shared_by_opcode']}" for k in edge_sass.INSTANCES))
     reps["edge_sass"] = res
     return reps
-
-
-def _edge_count():
-    """edge_sass.count(), or the exception it raised (for the thread)."""
-    try:
-        return edge_sass.count()
-    except Exception as e:  # noqa: BLE001 — re-raised by phase_build
-        return e
 
 
 def phase_kernel(dev, code, gen) -> dict:
