@@ -11,9 +11,10 @@ no result line:
            barrier_probe.cu and microbench.cu, one process each, all
            started together (ptxas report); phi's float32 operations are
            counted from its SASS (ldpc_tpu_torch/scripts/phi_sass.py) for
-           the sum-product bounds; the flooding edge loops of B1 (bf16 and
-           f32) are counted from theirs (ldpc_tpu_torch/scripts/edge_sass.py,
-           compiled beside the build): shared-memory instructions an edge.
+           the sum-product bounds; the flooding edge loops of B1 and the
+           layered ones of B3 (bf16 and f32) are counted from theirs
+           (ldpc_tpu_torch/scripts/edge_sass.py, compiled beside the
+           build): shared-memory instructions an edge (B3: an edge-sweep).
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -79,12 +80,14 @@ no result line:
            tile and on the card-filling count of tiles: every element of the
            final buffers equal, the sums within SUM_RTOL; the fused
            kernel at each of the script's decoder shapes (128 and 32,768
-           near-earth words at 0 dB, 40 iterations, bf16 and f32: the
-           script's first trial's words) against its plain version, every
-           word; (b) ldpc_tpu_torch.scripts.kernel_microbench --quick (the
-           probes' slopes at one tile and at the card-filling count, and
-           the fused kernel's per-iteration slopes at 128 and 32,768 words,
-           bf16 and f32, against the probes' op-count model);
+           near-earth words at 0 dB, 40 iterations, flooding bf16 and f32
+           and layered bf16: the script's first trial's words) against its
+           plain version, every word; (b)
+           ldpc_tpu_torch.scripts.kernel_microbench --quick (the probes'
+           slopes at one tile and at the card-filling count, the fused
+           kernel's per-iteration slopes at 128 and 32,768 words, bf16 and
+           f32, against the probes' op-count model, and its layered bf16
+           per-sweep slopes, B3's cost a sweep apart from convergence);
            (c) each probe timed at the card-filling count,
            K = 1,000, beside its plain version, its bound and its
            shared-memory bound.
@@ -431,9 +434,13 @@ def phase_build() -> dict:
         f"{phi['instructions']} SASS instructions; {phi['nvcc']}): "
         f"{phi['by_opcode']}")
     log("build", f"edge loops: {edge_sass.summary(res)}; shared "
-        "instructions by opcode (A, B): " + "; ".join(
-            f"{k} {res[k]['A']['shared_by_opcode']}, "
-            f"{res[k]['B']['shared_by_opcode']}" for k in edge_sass.INSTANCES))
+        "instructions by opcode (A, B; B3 syndrome, fold, delta): " +
+        "; ".join([f"{k} {res[k]['A']['shared_by_opcode']}, "
+                   f"{res[k]['B']['shared_by_opcode']}"
+                   for k in edge_sass.INSTANCES] +
+                  [f"{k} " + ", ".join(str(r[c]['shared_by_opcode'])
+                                       for c in edge_sass.LAYERED_EDGES)
+                   for k, r in res["layered"].items()]))
     reps["edge_sass"] = res
     return reps
 
@@ -1326,27 +1333,34 @@ def phase_microbench(dev) -> dict:
     code = near_earth_code()
     plan = DecodePlan.from_code(code)
     mi = max(kernel_microbench.DECODER_ITERS)
-    for store in kernel_microbench.DECODER_STORES:
+    runs = ([(s, "flooding") for s in kernel_microbench.DECODER_STORES] +
+            [(s, "layered") for s in kernel_microbench.LAYERED_STORES])
+    for store, schedule in runs:
+        reference = (layered_reference if schedule == "layered"
+                     else flooding_reference)
         for words in kernel_microbench.DECODER_WORDS:
             llr = kernel_microbench.decoder_input(words, mi, 0, dev)
             kern = make_static_sweep_decoder(code, mi, store_dtype=store,
+                                             schedule=schedule,
                                              device=dev)(llr)
-            plain = flooding_reference(llr, plan, mi, store_dtype=store)
+            plain = reference(llr, plan, mi, store_dtype=store)
             sync(dev)
             c = compare(kern, plain)
-            log("12microbench", f"(a) fused {store}, {words} words 0 dB {mi} "
-                f"it: {c['mismatched']} words differ from the plain "
-                f"version, converged {int(kern[2].sum())}/{words}")
+            log("12microbench", f"(a) fused {schedule} {store}, {words} words "
+                f"0 dB {mi} it: {c['mismatched']} words differ from the "
+                f"plain version, converged {int(kern[2].sum())}/{words}")
             if c["mismatched"]:
-                raise AssertionError(f"fused {store} at {words} words, 0 dB: "
-                                     f"{c['mismatched']} words differ from "
-                                     "the plain version")
+                raise AssertionError(f"fused {schedule} {store} at {words} "
+                                     f"words, 0 dB: {c['mismatched']} words "
+                                     "differ from the plain version")
     clear_launches()
     res = kernel_microbench.main(MB_ARGS)
     got = record_path(MB_PATH)
     missing = [n for n in microbench.NAMES if not got.get(("microbench", n))]
-    missing += [s for s in ("bfloat16", "float32")
+    missing += [s for s in kernel_microbench.DECODER_STORES
                 if not got.get(key("min-sum", s))]
+    missing += [s for s in kernel_microbench.LAYERED_STORES
+                if not got.get(key("min-sum", s, "layered"))]
     if missing:
         raise AssertionError(f"the microbench script did not launch "
                              f"{missing}: {got}")
@@ -1366,6 +1380,11 @@ def phase_microbench(dev) -> dict:
             f"{res[kernel_microbench.decoder_key(s, words)]:.3f}, "
             f"{res['model'][f'measured_over_model_{s}']:.3f}"
             for s in kernel_microbench.DECODER_STORES))
+    log("12microbench", f"(b) fused kernel, layered (B3), us a sweep at {lo} "
+        f"and {words} words: " + "; ".join(
+            f"{s} {res[kernel_microbench.decoder_key(s, lo, 'layered')]:.3f}, "
+            f"{res[kernel_microbench.decoder_key(s, words, 'layered')]:.3f}"
+            for s in kernel_microbench.LAYERED_STORES))
     smem_rate = res.get("smem_bytes_per_s")
     for name in microbench.NAMES:
         _, n_bufs, r, dtype = microbench.PROBES[name]

@@ -14,9 +14,12 @@ chip_smoke.py drives: 32,768 words at 3.4 dB; min-sum bf16 flooding at 12
 iterations, with the stored sign and with popcount_sign; layered bf16 at 6
 sweeps, with both signs; int8 flooding at 12 iterations; and the
 phase-split pair (``ops/cuda_split.py``) at 12 iterations in bf16 and f32.
-It prints one JSON line per root.  The line holds the build's seconds, the
-registers ptxas gave each kernel instance, each case's ms, and a hash of
-each case's outputs (the same across roots when their decodes agree).  It
+Then the layered bf16 kernel's cost a sweep apart from convergence: the
+slope (t(40) - t(10)) / 30 of its decode of 0 dB words, where nothing
+converges, at 128 and 32,768 words.  It prints one JSON line per root.  The
+line holds the build's seconds, the registers ptxas gave each kernel
+instance, each case's ms, a hash of each case's outputs (the same across
+roots when their decodes agree) and the slopes in microseconds a sweep.  It
 needs one card; it exits non-zero without one.
 """
 
@@ -43,6 +46,8 @@ CASES = (("flooding[min-sum,bfloat16]", {}, 12),
          ("flooding[min-sum,int8]", {"store_dtype": "int8"}, 12),
          ("split[min-sum,bfloat16]", {"store_dtype": "bfloat16"}, 12),
          ("split[min-sum,float32]", {"store_dtype": "float32"}, 12))
+SLOPE_SWEEPS = (10, 40)
+SLOPE_WORDS = (128, 32768)
 
 
 def _short(demangled: str) -> str:
@@ -103,6 +108,18 @@ def child(root: str) -> dict:
             x.cpu().numpy().tobytes() for x in res)).hexdigest()[:16]
         out["cases"][name] = {"ms": time_ms(lambda: dec(llr), dev, REPS),
                               "iterations": iters, "outputs": digest}
+    out["layered_us_per_sweep"] = {}
+    lo, hi = SLOPE_SWEEPS
+    for words in SLOPE_WORDS:
+        zero = torch.zeros(words, dtype=torch.float32, device=dev)
+        llr0 = transmit(code.n, zero, generator=gen)[0]
+        ms = {}
+        for sweeps in SLOPE_SWEEPS:
+            dec = make_static_sweep_decoder(code, sweeps, schedule="layered",
+                                            device=dev)
+            ms[sweeps] = time_ms(lambda: dec(llr0), dev, REPS)
+        out["layered_us_per_sweep"][words] = ((ms[hi] - ms[lo]) /
+                                              (hi - lo) * 1e3)
     return out
 
 

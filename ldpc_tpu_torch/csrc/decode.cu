@@ -12,11 +12,11 @@
 //   B2  kind="normalized-min-sum" / "offset-min-sum" (`_recon`): the
 //       magnitude is scaled by alpha, or lowered by beta and floored at 0,
 //       where a message is rebuilt; the stored state stays the raw two-min;
-//   B3  schedule="layered" (`layered_body`): a syndrome pass over the
-//       totals at the start of the sweep, the latches, then block row by
-//       block row the new state from the current totals, each edge's
-//       delta (new c2v - old c2v) added to the totals and rounded to the
-//       store, edge by edge in row-slot order;
+//   B3  schedule="layered" (`layered_body`): the syndrome of the totals at
+//       the start of the sweep, the latches, then block row by block row
+//       the new state from the current totals, each edge's delta (new c2v
+//       - old c2v) added to the totals and rounded to the store, edge by
+//       edge in row-slot order;
 //   B4  kind="sum-product" (`_phi`, `_recon_sp`, `_row_pass_sp`): per check
 //       the phi total S, the sign product and the packed edge signs, and one
 //       stashed phi per (block edge, check);
@@ -46,22 +46,33 @@
 // whole state in shared memory (byte offsets in Layout, in this order):
 //   edge tables        int32, as the host lays them out (below)
 //   min-sum family, from a 16-byte boundary:
-//     column table     int4 per (block column, column slot): the byte offset
-//                      of the record of variable j = 0, the shift in record
-//                      bytes, the row slot
+//     column table     flooding: int4 per (block column, column slot): the
+//                      byte offset of the record of variable j = 0, the
+//                      shift in record bytes, the row slot.  Layered, in
+//                      its place, int4 per (block row, slot): the byte
+//                      offsets of the record and of the scratch record of
+//                      check i = 0 for variable j = 0 of the slot's block
+//                      column (both less shift records), the wrap threshold
+//                      shift * 16, the slot
 //     check records    one per check: sign word 0, m1, m2, the argmin (a
 //                      slot index), the sign product as a bit (unused with
 //                      popcount_sign); bf16 and f32 16 bytes (word 0 | m1 |
 //                      m2 | argmin, the store's values as float32 bits with
 //                      the sign product in bit 31), int8 8 (word 0 | argmin
 //                      | m2 << 8 | m1 << 24, the sign product in bit 31)
+//     layered scratch  from a 16-byte boundary, z records of 16 bytes: the
+//                      new state of the block row being updated, unrounded,
+//                      in the f32 layout of the records
 //     row table        int2 per (block row, slot): the byte offset of the
 //                      total of check i = 0, and the wrap threshold
 //                      (z - shift) * sizeof(Store)
+//     layered blocks   int2 per (block row, block): the byte offset of the
+//                      total of variable j = 0 of its block column, its
+//                      slots d0 | d1 << 16; then int per block row: its
+//                      block count
+//     scratch words    layered, check degree > 32: z * (ceil(dc/32) - 1)
+//                      uint32, the scratch's sign words past the first
 //     sign words 1..   m * (ceil(dc/32) - 1) uint32 (check degree > 32)
-//     layered row      z * (ceil(dc/32) + 4) 32-bit words: the new state of
-//                      the block row being updated (signs, then m1, m2,
-//                      argmin and sign product as f32)
 //   sum-product:       sign words m * ceil(dc/32) uint32 (bit d%32 of word
 //                      d/32); S, the sign product: m Store each; phi stash:
 //                      n_edges * z Store (block edge e, check i at e*z + i)
@@ -71,11 +82,12 @@
 //   min-sum, bf16      51,952                        32,448
 //   min-sum, f32       84,656                        40,224
 //   min-sum, int8      27,424                        20,784
-//   layered            + 10,220                      + 1,620
+//   layered            + 8,696                       - 576
 //   sum-product, bf16  107,648                       33,612
 //   sum-product, f32   209,848                       59,208
 // Near-earth min-sum leaves room for four blocks an SM in bf16 and int8 and
-// two in f32; sum-product with f32 state for one (slow, and right).
+// two in f32 (layered: three in bf16, two in f32); sum-product with f32
+// state for one (slow, and right).
 //
 // The flooding loops of the min-sum family.  Phase A: a thread takes the
 // checks i0 and i0 + h (h = ceil(z/2)) of one block row and folds both
@@ -97,17 +109,26 @@
 // The layered hazard.  A block of the base matrix may hold several shifts
 // (near-earth: two in each), so two edges of one row reach the same
 // variable, and the order in which their deltas are rounded into the totals
-// decides the result.  The update of a block row therefore runs in three
-// steps with a barrier after the first two: (a) one thread per check builds
-// the row's new state from the current totals and the old record, into the
-// row scratch (f32, unrounded, as Pallas rebuilds the new messages from the
-// unrounded fold); (c) one thread per (block column, variable) of the row
-// applies that column's edges of the row in slot order, rounding the total
-// after each; (d) each check's new state is rounded into its record (the
-// same thread owns check i in (d) and in the next row's (a), so they need no
-// barrier between them).  The cost: 2 barriers per block row; near-earth
-// has 2 block rows of 16 edge pairs, 802.11n rate 1/2 12 rows of 81 checks,
-// which keep only 81 of 256 threads busy in (a).
+// decides the result.  The update of a block row therefore runs in steps
+// with a barrier after each: (a) a thread folds checks i0 and i0 + h of the
+// row (h = ceil(z/2); one check a thread where z <= 256, so that 802.11n's
+// 81 checks keep 81 threads busy and not 41, and where the check degree is
+// above 32) from the current totals and
+// the old records, into one 16-byte scratch record each (f32, unrounded, as
+// Pallas rebuilds the new messages from the unrounded fold); (c) a thread
+// takes the variables j0 + q*ceil(z/4) (q < 4) of one block of the row and
+// applies the block's edges in slot order, rounding the total after each:
+// the total is loaded and stored once, each slot's table entry loaded once
+// for the four, and an edge costs a vector load of the old record and one
+// of the scratch record; (d) each check's scratch record is rounded into
+// its record, by the thread that folded it, merged with the next row's (a)
+// (the next sweep's row 0 after the last row), so no barrier lies between
+// them.  The syndrome of the sweep's starting totals is row 0's fold's
+// parity (row 0 folds first, before any delta) and a parity-only pass over
+// rows 1.., two checks a thread on the row table, under one
+// __syncthreads_or; a converged word drops the scratch.  The cost: 2
+// barriers per block row; near-earth has 2 block rows of 16 blocks of two
+// shifts, 802.11n rate 1/2 12 rows of 81 checks.
 //
 // Exactness against the JAX kernel and the plain PyTorch version
 // (ldpc_tpu_torch/ops/cuda_static.py::flooding_reference and
@@ -148,9 +169,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Flooding: the checks of one block row that a thread folds together in
-// phase A, and the variables of one block column that it sums together in
-// phase B; each edge-table entry is loaded once for all of them.
+// The checks of one block row that a thread folds together (flooding phase
+// A, the layered parity pass, and the layered (a) where z > kThreads and
+// the check degree is at most 32), and the variables of one block column
+// that it sums together (flooding phase B, layered (c)); each edge-table
+// entry is loaded once for all of them.
 constexpr int kChecks = 2;
 constexpr int kVars = 4;
 constexpr float kBig = 3.0e38f;       // two-min fold start (pallas _BIG)
@@ -360,11 +383,13 @@ struct Args {
 // Byte offsets of one block's dynamic shared memory (see the layout above).
 template <int K, typename S, bool kLayered>
 struct Layout {
-  long long ctab = 0, rec = 0, rtab = 0, xbits = 0, row = 0, bits = 0,
-            sp_m1 = 0, sp_m2 = 0, stash = 0, chan = 0, tot = 0, total = 0;
+  long long ctab = 0, rec = 0, row = 0, rtab = 0, lblk = 0, lnb = 0,
+            rx = 0, xbits = 0, bits = 0, sp_m1 = 0, sp_m2 = 0, stash = 0,
+            chan = 0, tot = 0, total = 0;
   __host__ __device__ explicit Layout(const Args& a) {
     const long long sz = sizeof(S);
     const long long sw = sign_words(a.dc);
+    const long long edges = 1LL * a.mb_n * a.dc;   // (block row, slot)
     long long o = 4LL * table_ints(a.mb_n, a.nb_n, a.dc, a.dv);
     if (K == kSumProduct) {
       bits = o;
@@ -377,16 +402,27 @@ struct Layout {
       o += sz * a.n_edges * a.z;
     } else {
       o = (o + 15) / 16 * 16;
-      ctab = o;
-      o += 16LL * a.nb_n * a.dv;
+      ctab = o;   // the column table, or the layered (block row, slot) one
+      o += 16LL * (kLayered ? edges : 1LL * a.nb_n * a.dv);
       rec = o;
       o += static_cast<long long>(sizeof(typename Rec<S>::V)) * a.m;
+      if (kLayered) {
+        o = (o + 15) / 16 * 16;
+        row = o;
+        o += 16LL * a.z;
+      }
       rtab = o;
-      o += 8LL * a.mb_n * a.dc;
+      o += 8LL * edges;
+      if (kLayered) {
+        lblk = o;
+        o += 8LL * edges;
+        lnb = o;
+        o += 4LL * a.mb_n;
+        rx = o;
+        o += 4LL * a.z * (sw - 1);
+      }
       xbits = o;
       o += 4LL * a.m * (sw - 1);
-      row = o;
-      if (kLayered) o += 4LL * a.z * (sw + 4);
     }
     chan = o;
     o += sz * a.n;
@@ -418,12 +454,18 @@ struct Smem {
   const int4* ctab;
   typename Rec<S>::V* rec;
   uint32_t* xbits;   // check degree > 32: sign words 1.. of each check
-  // layered: the new state of the row being updated (f32, unrounded)
-  uint32_t* rbits;
-  float* rm1;
-  float* rm2;
-  float* ram;
-  float* rsp;
+  // layered: per (block row, slot) the byte offsets of the record and of
+  // the scratch record of check i = 0 for variable j = 0 (less shift
+  // records), the wrap threshold shift * 16 and the slot; per (block row,
+  // block) the byte offset of the total of variable j = 0 and the slots
+  // d0 | d1 << 16; per block row its block count
+  const int4* ltab;
+  const int2* lblk;
+  const int* lnb;
+  // layered: the new state of the row being updated (f32, unrounded, the
+  // records' f32 layout) and its sign words past the first
+  uint4* row;
+  uint32_t* rx;
   // sum-product: sign words, S, the sign product, the phi stash
   uint32_t* bits;
   S* m1;
@@ -560,6 +602,199 @@ __device__ __forceinline__ float message(const typename Rec<S>::V& r,
   }
 }
 
+// Layered (a), with (d) before it: a thread takes the checks i0 + q*h (q <
+// kC, h = ceil(z/kC)) of a block row.  With prev >= 0 it first rounds the
+// scratch records of those checks (block row prev's new state) into their
+// records; then it folds them in block row mb from the current totals into
+// the scratch.  Returns the OR of the checks' parities of the totals.
+template <int K, typename S, bool kWide, bool kPop, int kC>
+__device__ __forceinline__ int layered_rows(const Smem<S>& p, const Args& a,
+                                            int prev, int mb) {
+  using R = Rec<S>;
+  const int z = a.z;
+  const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
+  const int h = (z + kC - 1) / kC;
+  int bad = 0;
+  for (int i0 = threadIdx.x; i0 < h; i0 += kThreads) {
+    int i[kC];
+    uint32_t* xo[kC];
+#pragma unroll
+    for (int q = 0; q < kC; ++q) {
+      const int iq = i0 + q * h;
+      i[q] = iq < z ? iq : i0;   // past z: i0 again, not written
+      xo[q] = p.rx + i[q] * n_x;
+    }
+    if (prev >= 0) {
+#pragma unroll
+      for (int q = 0; q < kC; ++q) {
+        const uint4 r = p.row[i[q]];
+        const int c = prev * z + i[q];
+        p.rec[c] = R::pack(r.x, Rec32::m1(r), Rec32::m2(r), Rec32::am(r),
+                           kPop ? 0u : r.y >> 31);
+        for (int w = 0; w < n_x; ++w) p.xbits[c * n_x + w] = xo[q][w];
+      }
+    }
+    Folded f[kC];
+    fold<K, S, kWide, kPop, kC>(p, a, mb, i, xo, f);
+#pragma unroll
+    for (int q = 0; q < kC; ++q) {
+      bad |= f[q].par;
+      if (i0 + q * h < z) {
+        p.row[i[q]] = Rec32::make(f[q].w0, f[q].n1, f[q].n2, f[q].am,
+                                  f[q].neg);
+      }
+    }
+  }
+  return bad;
+}
+
+// Layered syndrome of block rows 1..: the OR of the parities of their
+// checks' totals, kChecks checks of one block row a thread (the items
+// numbered across rows from `first`), each row-table entry loaded once for
+// them.
+template <typename S>
+__device__ __forceinline__ int parity_rows(const Smem<S>& p, const Args& a,
+                                           int first) {
+  constexpr int sz = sizeof(S);
+  const int z = a.z;
+  const int zb = z * sz;
+  const int h = (z + kChecks - 1) / kChecks;
+  int mb = 1 + first / h;
+  int i0 = first % h;
+  int bad = 0;
+  while (mb < a.mb_n) {
+    int ib[kChecks];
+    uint32_t par[kChecks];
+#pragma unroll
+    for (int q = 0; q < kChecks; ++q) {
+      const int iq = i0 + q * h;
+      ib[q] = (iq < z ? iq : i0) * sz;   // past z: i0 again
+      par[q] = 0u;
+    }
+    const int deg = p.row_deg[mb];
+    const int2* rt = p.rtab + mb * a.dc;
+    for (int d = 0; d < deg; ++d) {
+      const int2 t = rt[d];
+#pragma unroll
+      for (int q = 0; q < kChecks; ++q) {
+        const int off = ib[q] >= t.y ? t.x + ib[q] - zb : t.x + ib[q];
+        flip_if_negative(par[q],
+                         ld(*reinterpret_cast<const S*>(p.base + off)));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kChecks; ++q) bad |= par[q];
+    i0 += kThreads;
+    while (i0 >= h) {
+      i0 -= h;
+      ++mb;
+    }
+  }
+  return bad;
+}
+
+// Layered (c) of block row mb: totals += new c2v - old c2v, edge by edge in
+// slot order, rounded after each.  A thread takes the variables j0 + q*h
+// (q < kVars, h = ceil(z/kVars)) of one block of the row (the items (block,
+// j0) numbered across the row's blocks): it loads their totals once, each
+// slot's table entry once for them, and per edge the old record and the
+// scratch record.
+template <int K, typename S, bool kWide, bool kPop>
+__device__ __forceinline__ void layered_deltas(const Smem<S>& p,
+                                               const Args& a, int mb) {
+  using V = typename Rec<S>::V;
+  constexpr int sz = sizeof(S);
+  constexpr int rb = sizeof(V);
+  const int z = a.z;
+  const int zr = z * rb;
+  const int z16 = z * 16;
+  const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
+  const int h = (z + kVars - 1) / kVars;
+  const int n_blk = p.lnb[mb];
+  const int2* bt = p.lblk + mb * a.dc;
+  const int4* lt = p.ltab + mb * a.dc;
+  int b = threadIdx.x / h;
+  int j0 = threadIdx.x - b * h;
+  while (b < n_blk) {
+    const int2 blk = bt[b];
+    int j[kVars];
+    float t[kVars];
+#pragma unroll
+    for (int q = 0; q < kVars; ++q) {
+      const int jq = j0 + q * h;
+      j[q] = jq < z ? jq : j0;   // past z: j0 again, not written
+      t[q] = ld(*reinterpret_cast<const S*>(p.base + blk.x + j[q] * sz));
+    }
+    const int4* end = lt + (blk.y >> 16);
+    for (const int4* e = lt + (blk.y & 0xffff); e < end; ++e) {
+      const int4 te = *e;
+#pragma unroll
+      for (int q = 0; q < kVars; ++q) {
+        const bool wrap = j[q] * 16 < te.z;
+        const int on = te.y + j[q] * 16 + (wrap ? z16 : 0);
+        const int oo = te.x + j[q] * rb + (wrap ? zr : 0);
+        const V ro = *reinterpret_cast<const V*>(p.base + oo);
+        const uint4 rn = *reinterpret_cast<const uint4*>(p.base + on);
+        const uint32_t* xo = nullptr;
+        const uint32_t* xn = nullptr;
+        if (kWide) {
+          const int i = j[q] - (te.z >> 4) + (wrap ? z : 0);
+          xo = p.xbits + (mb * z + i) * n_x;
+          xn = p.rx + i * n_x;
+        }
+        const float co = message<K, S, kWide, kPop>(ro, xo, n_x, te.w,
+                                                     a.alpha, a.beta);
+        const float cn = message<K, float, kWide, false>(rn, xn, n_x, te.w,
+                                                         a.alpha, a.beta);
+        t[q] = ld(st<S>(__fadd_rn(t[q], __fsub_rn(cn, co))));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kVars; ++q) {
+      if (j0 + q * h < z) {
+        *reinterpret_cast<S*>(p.base + blk.x + j[q] * sz) = st<S>(t[q]);
+      }
+    }
+    j0 += kThreads;
+    while (j0 >= h) {
+      j0 -= h;
+      ++b;
+    }
+  }
+}
+
+// The layered sweeps (`layered_body`) with kC checks a thread in (a);
+// sets it_done and ok as the flooding loop does.
+template <int K, typename S, bool kWide, bool kPop, int kC>
+__device__ __forceinline__ void layered_decode(const Smem<S>& p,
+                                               const Args& a, int& it_done,
+                                               int& ok) {
+  const int h = (a.z + kC - 1) / kC;
+  // the parity items start after the threads that fold row 0's last checks
+  const int first = (threadIdx.x + kThreads - h % kThreads) % kThreads;
+  for (int it = 0;; ++it) {
+    // (d) of the last row of the previous sweep, (a) of row 0, whose fold
+    // reads the sweep's starting totals, and the parity of rows 1..
+    int bad = layered_rows<K, S, kWide, kPop, kC>(
+        p, a, it > 0 ? a.mb_n - 1 : -1, 0);
+    bad |= parity_rows<S>(p, a, first);
+    if (!__syncthreads_or(bad)) {
+      ok = 1;
+      it_done = it;
+      return;
+    }
+    if (it == a.max_iters) return;
+    for (int mb = 0; mb < a.mb_n; ++mb) {
+      if (mb > 0) {
+        layered_rows<K, S, kWide, kPop, kC>(p, a, mb - 1, mb);
+        __syncthreads();
+      }
+      layered_deltas<K, S, kWide, kPop>(p, a, mb);
+      __syncthreads();
+    }
+  }
+}
+
 // Sum-product phase A for check c (`_row_pass_sp`); returns its parity.
 template <typename S, bool kWide>
 __device__ __forceinline__ int row_pass_sp(const Smem<S>& p, const Args& a,
@@ -633,11 +868,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   p.ctab = reinterpret_cast<const int4*>(smem + lay.ctab);
   p.rec = reinterpret_cast<V*>(smem + lay.rec);
   p.xbits = reinterpret_cast<uint32_t*>(smem + lay.xbits);
-  p.rbits = reinterpret_cast<uint32_t*>(smem + lay.row);
-  p.rm1 = reinterpret_cast<float*>(p.rbits + z * n_sw);
-  p.rm2 = p.rm1 + z;
-  p.ram = p.rm2 + z;
-  p.rsp = p.ram + z;
+  p.ltab = reinterpret_cast<const int4*>(smem + lay.ctab);
+  p.lblk = reinterpret_cast<const int2*>(smem + lay.lblk);
+  p.lnb = reinterpret_cast<const int*>(smem + lay.lnb);
+  p.row = reinterpret_cast<uint4*>(smem + lay.row);
+  p.rx = reinterpret_cast<uint32_t*>(smem + lay.rx);
   p.bits = reinterpret_cast<uint32_t*>(smem + lay.bits);
   p.m1 = reinterpret_cast<S*>(smem + lay.sp_m1);
   p.m2 = reinterpret_cast<S*>(smem + lay.sp_m2);
@@ -665,10 +900,40 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
       rtab[k] = make_int2(static_cast<int>(lay.tot) + (g_nb[k] * z + s) * sz,
                           (z - s) * sz);
     }
-    for (int k = tid; k < a.nb_n * a.dv; k += kThreads) {
-      const int s = g_csh[k];
-      ctab[k] = make_int4(static_cast<int>(lay.rec) + (g_cmb[k] * z - s) * rb,
-                          s * rb, g_cd[k], 0);
+    if (kLayered) {
+      // per (block row, slot) and per (block row, block): see Smem
+      int2* lblk = reinterpret_cast<int2*>(smem + lay.lblk);
+      int* lnb = reinterpret_cast<int*>(smem + lay.lnb);
+      for (int k = tid; k < a.mb_n * a.dc; k += kThreads) {
+        const int mb = k / a.dc;
+        const int d = k - mb * a.dc;
+        const int s = g_rsh[k];
+        ctab[k] = make_int4(
+            static_cast<int>(lay.rec) + (mb * z - s) * rb,
+            static_cast<int>(lay.row) - s * 16, s * 16, d);
+        const int deg = a.tables[mb];
+        const int* nb = g_nb + mb * a.dc;
+        if (d < deg && (d == 0 || nb[d - 1] != nb[d])) {
+          int b = 0;
+          for (int e = 1; e <= d; ++e) b += nb[e] != nb[e - 1];
+          int d1 = d + 1;
+          while (d1 < deg && nb[d1] == nb[d]) ++d1;
+          lblk[mb * a.dc + b] = make_int2(
+              static_cast<int>(lay.tot) + nb[d] * z * sz, d | (d1 << 16));
+        }
+        if (d == 0) {
+          int b = deg > 0;
+          for (int e = 1; e < deg; ++e) b += nb[e] != nb[e - 1];
+          lnb[mb] = b;
+        }
+      }
+    } else {
+      for (int k = tid; k < a.nb_n * a.dv; k += kThreads) {
+        const int s = g_csh[k];
+        ctab[k] = make_int4(
+            static_cast<int>(lay.rec) + (g_cmb[k] * z - s) * rb, s * rb,
+            g_cd[k], 0);
+      }
     }
   }
   const float* in = a.llr + static_cast<size_t>(word) * n;
@@ -700,192 +965,129 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
 
   int it_done = a.max_iters;
   int ok = 0;
-  for (int it = 0;; ++it) {
-    int bad = 0;
-    if (kLayered) {
-      // ---- syndrome of the totals at the start of the sweep ----
-      for (int c = tid; c < m; c += kThreads) {
-        const int mb = c / z;
-        const int i = c - mb * z;
-        const int deg = p.row_deg[mb];
-        const int* rnb = p.row_nb + mb * a.dc;
-        const int* rsh = p.row_shift + mb * a.dc;
-        int par = 0;
-        for (int d = 0; d < deg; ++d) {
-          int j = i + rsh[d];
-          if (j >= z) j -= z;
-          par ^= ld(p.tot[rnb[d] * z + j]) < 0.f;
-        }
-        bad |= par;
-      }
-    } else if (kSp) {
-      for (int c = tid; c < m; c += kThreads) {
-        bad |= row_pass_sp<S, kWide>(p, a, c, n_sw);
-      }
+  if constexpr (kLayered) {
+    // two checks a thread in (a) only where z > kThreads and the check
+    // degree is at most 32: the wide instances' two-check fold spills
+    // registers beside the one-check variant
+    if (!kWide && z > kThreads) {
+      layered_decode<K, S, kWide, kPop, kChecks>(p, a, it_done, ok);
     } else {
-      // ---- phase A: syndrome of the current totals + new check state;
-      // a thread takes the checks i0 + q*h (q < kChecks) of block row mb ----
-      const int h = (z + kChecks - 1) / kChecks;
-      int mb = tid / h;
-      int i0 = tid - mb * h;
-      while (mb < a.mb_n) {
-        int i[kChecks];
-        uint32_t* xo[kChecks];
-#pragma unroll
-        for (int q = 0; q < kChecks; ++q) {
-          const int iq = i0 + q * h;
-          i[q] = iq < z ? iq : i0;   // past z: i0 again, not written
-          xo[q] = p.xbits + (mb * z + i[q]) * n_x;
+      layered_decode<K, S, kWide, kPop, 1>(p, a, it_done, ok);
+    }
+  } else {
+    for (int it = 0;; ++it) {
+      int bad = 0;
+      if (kSp) {
+        for (int c = tid; c < m; c += kThreads) {
+          bad |= row_pass_sp<S, kWide>(p, a, c, n_sw);
         }
-        Folded f[kChecks];
-        fold<K, S, kWide, kPop, kChecks>(p, a, mb, i, xo, f);
+      } else {
+        // ---- phase A: syndrome of the current totals + new check state;
+        // a thread takes the checks i0 + q*h (q < kChecks) of block row mb ----
+        const int h = (z + kChecks - 1) / kChecks;
+        int mb = tid / h;
+        int i0 = tid - mb * h;
+        while (mb < a.mb_n) {
+          int i[kChecks];
+          uint32_t* xo[kChecks];
 #pragma unroll
-        for (int q = 0; q < kChecks; ++q) {
-          bad |= f[q].par;
-          if (i0 + q * h < z) {
-            p.rec[mb * z + i[q]] = R::pack(f[q].w0, f[q].n1, f[q].n2, f[q].am,
-                                           kPop ? 0u : f[q].neg);
+          for (int q = 0; q < kChecks; ++q) {
+            const int iq = i0 + q * h;
+            i[q] = iq < z ? iq : i0;   // past z: i0 again, not written
+            xo[q] = p.xbits + (mb * z + i[q]) * n_x;
+          }
+          Folded f[kChecks];
+          fold<K, S, kWide, kPop, kChecks>(p, a, mb, i, xo, f);
+#pragma unroll
+          for (int q = 0; q < kChecks; ++q) {
+            bad |= f[q].par;
+            if (i0 + q * h < z) {
+              p.rec[mb * z + i[q]] = R::pack(f[q].w0, f[q].n1, f[q].n2, f[q].am,
+                                             kPop ? 0u : f[q].neg);
+            }
+          }
+          i0 += kThreads;
+          while (i0 >= h) {
+            i0 -= h;
+            ++mb;
           }
         }
-        i0 += kThreads;
-        while (i0 >= h) {
-          i0 -= h;
-          ++mb;
-        }
       }
-    }
-    if (!__syncthreads_or(bad)) {
-      ok = 1;
-      it_done = it;
-      break;
-    }
-    if (it == a.max_iters) break;
-    if (kLayered) {
-      // ---- block row by block row: new state, then the deltas ----
-      for (int mb = 0; mb < a.mb_n; ++mb) {
-        // (a) the row's new state into the row scratch
-        for (int i = tid; i < z; i += kThreads) {
-          const int ii[1] = {i};
-          uint32_t* const xo[1] = {p.rbits + i * n_sw + 1};
-          Folded f[1];
-          fold<K, S, kWide, kPop, 1>(p, a, mb, ii, xo, f);
-          p.rbits[i * n_sw] = f[0].w0;
-          p.rm1[i] = f[0].n1;
-          p.rm2[i] = f[0].n2;
-          p.ram[i] = static_cast<float>(f[0].am);
-          p.rsp[i] = f[0].neg ? -1.f : 1.f;
-        }
-        __syncthreads();
-        // (c) totals += new c2v - old c2v, edge by edge in slot order; a
-        // thread owns one variable of one block column of the row
-        const int deg = p.row_deg[mb];
-        const int* rnb = p.row_nb + mb * a.dc;
-        const int* rsh = p.row_shift + mb * a.dc;
-        for (int k = tid; k < deg * z; k += kThreads) {
-          const int d0 = k / z;
-          const int j = k - d0 * z;
-          const int nb = rnb[d0];
-          if (d0 > 0 && rnb[d0 - 1] == nb) continue;  // not the block's first
-          const int v = nb * z + j;
-          float t = ld(p.tot[v]);
-          for (int d = d0; d < deg && rnb[d] == nb; ++d) {
-            int i = j - rsh[d];
+      if (!__syncthreads_or(bad)) {
+        ok = 1;
+        it_done = it;
+        break;
+      }
+      if (it == a.max_iters) break;
+      // ---- phase B: totals = -chan + sum of the rebuilt c2v messages ----
+      if (kSp) {
+        for (int v = tid; v < n; v += kThreads) {
+          const int nb = v / z;
+          const int j = v - nb * z;
+          float acc = -ld(p.chan[v]);
+          const int deg = p.col_deg[nb];
+          for (int k = 0; k < deg; ++k) {
+            const int e = nb * a.dv + k;
+            const int d = p.col_d[e];
+            int i = j - p.col_shift[e];
             if (i < 0) i += z;
-            const int c = mb * z + i;
-            const uint32_t* nbits = p.rbits + i * n_sw;
-            const float nmag =
-                (p.ram[i] == static_cast<float>(d)) ? p.rm2[i] : p.rm1[i];
-            const float cn =
-                p.rsp[i] * bit_sign(kWide ? nbits[d >> 5] : nbits[0], d & 31) *
-                adjust<K>(nmag, a.alpha, a.beta);
-            const float co = message<K, S, kWide, kPop>(
-                p.rec[c], p.xbits + c * n_x, n_x, d, a.alpha, a.beta);
-            t = ld(st<S>(__fadd_rn(t, __fsub_rn(cn, co))));
+            const int cmb = p.col_mb[e];
+            const int c = cmb * z + i;
+            const uint32_t w = kWide ? p.bits[c * n_sw + (d >> 5)] : p.bits[c];
+            acc = acc + ld(p.m2[c]) * bit_sign(w, d & 31) *
+                            phi(clip_phi(ld(p.m1[c]) -
+                                         ld(p.stash[(p.row_base[cmb] + d) * z +
+                                                    i])));
           }
-          p.tot[v] = st<S>(t);
+          p.tot[v] = st<S>(acc);
         }
-        __syncthreads();
-        // (d) round the new state into the row's records
-        for (int i = tid; i < z; i += kThreads) {
-          const int c = mb * z + i;
-          p.rec[c] = R::pack(p.rbits[i * n_sw], p.rm1[i], p.rm2[i],
-                             static_cast<int>(p.ram[i]),
-                             kPop ? 0u : static_cast<uint32_t>(p.rsp[i] < 0.f));
-          for (int w = 1; w < n_sw; ++w) {
-            p.xbits[c * n_x + w - 1] = p.rbits[i * n_sw + w];
-          }
-        }
-      }
-      continue;
-    }
-    // ---- phase B: totals = -chan + sum of the rebuilt c2v messages ----
-    if (kSp) {
-      for (int v = tid; v < n; v += kThreads) {
-        const int nb = v / z;
-        const int j = v - nb * z;
-        float acc = -ld(p.chan[v]);
-        const int deg = p.col_deg[nb];
-        for (int k = 0; k < deg; ++k) {
-          const int e = nb * a.dv + k;
-          const int d = p.col_d[e];
-          int i = j - p.col_shift[e];
-          if (i < 0) i += z;
-          const int cmb = p.col_mb[e];
-          const int c = cmb * z + i;
-          const uint32_t w = kWide ? p.bits[c * n_sw + (d >> 5)] : p.bits[c];
-          acc = acc + ld(p.m2[c]) * bit_sign(w, d & 31) *
-                          phi(clip_phi(ld(p.m1[c]) -
-                                       ld(p.stash[(p.row_base[cmb] + d) * z +
-                                                  i])));
-        }
-        p.tot[v] = st<S>(acc);
-      }
-    } else {
-      // a thread takes the variables j0 + q*h (q < kVars) of block column
-      // nb; each sums its messages in the column's order
-      constexpr int rb = sizeof(V);
-      const int zr = z * rb;
-      const int h = (z + kVars - 1) / kVars;
-      int nb = tid / h;
-      int j0 = tid - nb * h;
-      while (nb < a.nb_n) {
-        int v[kVars], jr[kVars];
-        float acc[kVars];
-#pragma unroll
-        for (int q = 0; q < kVars; ++q) {
-          const int jq = j0 + q * h;
-          const int j = jq < z ? jq : j0;   // past z: j0 again, not written
-          v[q] = nb * z + j;
-          jr[q] = j * rb;
-          acc[q] = -ld(p.chan[v[q]]);
-        }
-        const int deg = p.col_deg[nb];
-        const int4* ct = p.ctab + nb * a.dv;
-        for (int k = 0; k < deg; ++k) {
-          const int4 e = ct[k];
+      } else {
+        // a thread takes the variables j0 + q*h (q < kVars) of block column
+        // nb; each sums its messages in the column's order
+        constexpr int rb = sizeof(V);
+        const int zr = z * rb;
+        const int h = (z + kVars - 1) / kVars;
+        int nb = tid / h;
+        int j0 = tid - nb * h;
+        while (nb < a.nb_n) {
+          int v[kVars], jr[kVars];
+          float acc[kVars];
 #pragma unroll
           for (int q = 0; q < kVars; ++q) {
-            const int off = jr[q] < e.y ? e.x + jr[q] + zr : e.x + jr[q];
-            const V r = *reinterpret_cast<const V*>(p.base + off);
-            const uint32_t* xw =
-                kWide ? p.xbits + (off - static_cast<int>(lay.rec)) / rb * n_x
-                      : nullptr;
-            acc[q] = acc[q] + message<K, S, kWide, kPop>(r, xw, n_x, e.z,
-                                                         a.alpha, a.beta);
+            const int jq = j0 + q * h;
+            const int j = jq < z ? jq : j0;   // past z: j0 again, not written
+            v[q] = nb * z + j;
+            jr[q] = j * rb;
+            acc[q] = -ld(p.chan[v[q]]);
+          }
+          const int deg = p.col_deg[nb];
+          const int4* ct = p.ctab + nb * a.dv;
+          for (int k = 0; k < deg; ++k) {
+            const int4 e = ct[k];
+#pragma unroll
+            for (int q = 0; q < kVars; ++q) {
+              const int off = jr[q] < e.y ? e.x + jr[q] + zr : e.x + jr[q];
+              const V r = *reinterpret_cast<const V*>(p.base + off);
+              const uint32_t* xw =
+                  kWide ? p.xbits + (off - static_cast<int>(lay.rec)) / rb * n_x
+                        : nullptr;
+              acc[q] = acc[q] + message<K, S, kWide, kPop>(r, xw, n_x, e.z,
+                                                           a.alpha, a.beta);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kVars; ++q) {
+            if (j0 + q * h < z) p.tot[v[q]] = st<S>(acc[q]);
+          }
+          j0 += kThreads;
+          while (j0 >= h) {
+            j0 -= h;
+            ++nb;
           }
         }
-#pragma unroll
-        for (int q = 0; q < kVars; ++q) {
-          if (j0 + q * h < z) p.tot[v[q]] = st<S>(acc[q]);
-        }
-        j0 += kThreads;
-        while (j0 >= h) {
-          j0 -= h;
-          ++nb;
-        }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // errors against the all-zero word, from the latched state's totals

@@ -152,10 +152,14 @@ def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
     family, from a 16-byte boundary, the packed column and row tables (16
     and 8 bytes an entry), one record per check (16 bytes in bfloat16 and
     float32, 8 in int8; the sign product is a bit of it, so popcount_sign
-    changes nothing), the sign words past the first (4 bytes each) and the
-    layered schedule's row scratch (z x (sign words + 4) 32-bit words); for
-    sum-product the sign words and its planes in the store; then the
-    channel and total planes in the store."""
+    changes nothing) and the sign words past the first (4 bytes each).  The
+    layered schedule has a (block row, slot) table of 16 bytes an entry in
+    place of the column table, and, from a 16-byte boundary after the
+    records, the row scratch (one 16-byte record per check of a block row,
+    and its sign words past the first), a (block row, block) table of 8
+    bytes an entry and a block count per block row.  For sum-product: the
+    sign words and its planes in the store.  Then the channel and total
+    planes in the store."""
     _check_kind(kind)
     sw = _sign_words(plan)
     n_tab = (plan.block_rows * (2 + 2 * plan.dmax_cn) +
@@ -166,11 +170,14 @@ def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
         return (4 * (n_tab + plan.m * sw) +
                 width * (2 * plan.m + _n_edges(plan) * plan.z) + planes)
     record = 8 if _store_name(store) == "int8" else 16
-    row = 4 * plan.z * (sw + 4) if schedule == "layered" else 0
-    return (-(-4 * n_tab // 16) * 16 +
-            16 * plan.block_cols * plan.dmax_vn +
-            8 * plan.block_rows * plan.dmax_cn +
-            record * plan.m + 4 * plan.m * (sw - 1) + row + planes)
+    edges = plan.block_rows * plan.dmax_cn          # (block row, slot)
+    tables = -(-4 * n_tab // 16) * 16 + 8 * edges
+    if schedule == "layered":
+        return (tables + 16 * edges + -(-record * plan.m // 16) * 16 +
+                16 * plan.z + 8 * edges + 4 * plan.block_rows +
+                4 * (plan.z + plan.m) * (sw - 1) + planes)
+    return (tables + 16 * plan.block_cols * plan.dmax_vn + record * plan.m +
+            4 * plan.m * (sw - 1) + planes)
 
 
 class _RefTables:

@@ -1,5 +1,5 @@
-"""Count the SASS of the fused kernel's flooding edge loops, on the card's
-toolkit.
+"""Count the SASS of the fused kernel's edge loops, flooding (B1) and
+layered (B3), on the card's toolkit.
 
 ``csrc/decode.cu`` is compiled to a cubin with the kernel's ``nvcc``
 flags for ``sm_90a`` and read with ``cuobjdump -sass``.  In the min-sum
@@ -23,14 +23,30 @@ phase B the accumulating adds (one for each edge's message).  Where a
 phase has several such loops (an unrolled body and its remainder), its
 line is the loop with the most edges a body.
 
+The layered instances (B3: ``decode_kernel<0, __nv_bfloat16, false, true,
+false>`` and its float32 twin) have three edge loops a sweep.  The fold of
+(a) holds an ``FMNMX`` (edges: ``FMNMX`` over 2, a check and a slot each);
+the delta loop of (c) holds no ``FMNMX`` and an accumulating add, the
+rounded total carried from edge to edge (edges: those adds); the syndrome
+loop holds neither, a float compare and an xor (``LOP3.LUT`` 0x3c or 0x96)
+of the parity (edges: the compares; the error count's loop has no xor).
+Where a class has several loops (unrolled bodies and remainders, the one-
+and two-check variants of (a), row 0's fold), its line is the loop with
+the most edges a body and, of those, the fewest instructions an edge.  A
+fold that holds an xor takes the parity of the totals itself (row 0's, in
+the redesign of the layered sweep), so the syndrome loop covers the other
+block rows only: the sum an edge-sweep weighs it by (rows - 1) / rows at
+near-earth's 2 block rows, else by 1.
+
 On the machine with the toolkit::
 
     python -m ldpc_tpu_torch.scripts.edge_sass [--source PATH]
 
 prints one JSON line: per instance, each phase's shared instructions an
-edge, instructions an edge and the loop's counts, the sum over the two
-phases, and ``nvcc --version``'s last line.  ``--source`` counts another
-``decode.cu`` (another revision's, unpacked with ``git archive``).
+edge, instructions an edge and the loop's counts, the sum over the phases
+(``layered``: B3's, an edge-sweep), and ``nvcc --version``'s last line.
+``--source`` counts another ``decode.cu`` (another revision's, unpacked
+with ``git archive``).
 """
 
 from __future__ import annotations
@@ -56,6 +72,11 @@ _KERNEL = re.compile(r"decode_kernelILi(\d+)E(13__nv_bfloat16|f|a)"
 # the instances counted: min-sum, flooding, check degree <= 32, stored sign
 INSTANCES = {"B1 bfloat16": (0, "bfloat16", 0, 0, 0),
              "B1 float32": (0, "float32", 0, 0, 0)}
+# the layered instances counted: min-sum, check degree <= 32, stored sign
+LAYERED = {"B3 bfloat16": (0, "bfloat16", 0, 1, 0),
+           "B3 float32": (0, "float32", 0, 1, 0)}
+NEAR_EARTH_ROWS = 2   # near-earth's block rows, for B3's sum an edge-sweep
+_XOR_LUTS = {"0x3c", "0x96"}   # a ^ b, a ^ b ^ c
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);")
 _REG = re.compile(r"\bR(\d+)\b")
@@ -128,9 +149,11 @@ def _srcs(insn: Insn) -> list[int]:
 
 def accumulating_adds(body: list[Insn]) -> int:
     """Float adds whose accumulator is carried around the loop: an FADD with
-    a source register that the body reads before it writes it and writes
-    later (or that such an add wrote earlier in the body), or an FFMA whose
-    addend is such a register."""
+    a source register that holds, where it is read, the value the body
+    carries from its previous pass (the body reads it before it writes it,
+    and writes it later) or the result of such an add earlier in the body,
+    or an FFMA whose addend is such a register.  A register that any other
+    instruction overwrites holds no accumulator from then on."""
     written, read_first = set(), set()
     for insn in body:
         read_first.update(r for r in _srcs(insn) if r not in written)
@@ -138,13 +161,15 @@ def accumulating_adds(body: list[Insn]) -> int:
     acc = read_first & written
     count = 0
     for insn in body:
-        if insn.op not in ("FADD", "FFMA"):
-            continue
-        ops = [o.strip() for o in insn.operands.split(",")]
-        srcs = ops[1:] if insn.op == "FADD" else ops[3:4]
-        if any(r in acc for s in srcs for r in _regs(s)):
-            count += 1
-            acc.update(_regs(ops[0]))
+        dests = _dests(insn)
+        if insn.op in ("FADD", "FFMA"):
+            ops = [o.strip() for o in insn.operands.split(",")]
+            srcs = ops[1:] if insn.op == "FADD" else ops[3:4]
+            if any(r in acc for s in srcs for r in _regs(s)):
+                count += 1
+                acc.update(dests)
+                continue
+        acc.difference_update(dests)
     return count
 
 
@@ -160,6 +185,9 @@ def loop_counts(body: list[Insn]) -> dict:
             "shared_by_opcode": dict(sorted(shared.items())),
             "conversions": sum(1 for i in body if i.op in _CONVERSIONS),
             "fmnmx": sum(1 for i in body if i.op == "FMNMX"),
+            "fsetp": sum(1 for i in body if i.op == "FSETP"),
+            "xors": sum(1 for i in body if i.op == "LOP3" and
+                        i.operands.split(",")[-2].strip() in _XOR_LUTS),
             "accumulating_adds": accumulating_adds(body),
             "global": sum(1 for i in body if i.op in _GLOBAL)}
 
@@ -202,6 +230,56 @@ def edge_loops(insns: list[Insn]) -> dict:
     return res
 
 
+def classify_layered(c: dict) -> str | None:
+    """``"syndrome"``, ``"fold"``, ``"delta"`` or None of a loop's counts
+    in a layered instance."""
+    if c["global"] or not any(k.startswith("LDS")
+                              for k in c["shared_by_opcode"]):
+        return None
+    if c["fmnmx"]:
+        return "fold"
+    if c["accumulating_adds"]:
+        return "delta"
+    if c["fsetp"] and c["xors"]:
+        return "syndrome"
+    return None
+
+
+LAYERED_EDGES = {"syndrome": lambda c: c["fsetp"],
+                 "fold": lambda c: c["fmnmx"] / 2,
+                 "delta": lambda c: c["accumulating_adds"]}
+
+
+def layered_loops(insns: list[Insn], rows: int = NEAR_EARTH_ROWS) -> dict:
+    """Each class's edge loop in a layered instance (the most edges a body,
+    then the fewest instructions an edge), the syndrome loop's share of a
+    sweep's edges, and the sums an edge-sweep."""
+    res: dict = {"loops": []}
+    for body in innermost_loops(insns):
+        c = loop_counts(body)
+        kind = classify_layered(c)
+        if kind is None:
+            continue
+        edges = LAYERED_EDGES[kind](c)
+        c.update(phase=kind, edges=edges,
+                 shared_per_edge=c["shared"] / edges,
+                 instructions_per_edge=c["instructions"] / edges)
+        res["loops"].append(c)
+    for kind in LAYERED_EDGES:
+        cands = [c for c in res["loops"] if c["phase"] == kind]
+        res[kind] = (min(cands, key=lambda c: (-c["edges"],
+                                               c["instructions_per_edge"]))
+                     if cands else None)
+    folds_parity = any(c["phase"] == "fold" and c["xors"]
+                       for c in res["loops"])
+    res["syndrome_share"] = (rows - 1) / rows if folds_parity else 1.0
+    if all(res[k] for k in LAYERED_EDGES):
+        w = {"syndrome": res["syndrome_share"], "fold": 1.0, "delta": 1.0}
+        for key in ("shared_per_edge", "instructions_per_edge"):
+            res[key] = sum(w[k] * res[k][key] for k in LAYERED_EDGES)
+    return res
+
+
 def instance_name(mangled: str) -> str | None:
     """``decode_kernel<K, S, kWide, kLayered, kPop>`` of a mangled name."""
     m = _KERNEL.search(mangled)
@@ -229,6 +307,23 @@ def analyse(sass: str) -> dict:
     return out
 
 
+def analyse_layered(sass: str) -> dict:
+    """The edge loops of each counted layered instance in a listing."""
+    funcs = {instance_name(k): v for k, v in parse(sass).items()}
+    out = {}
+    for label, (k, s, w, lay, pop) in LAYERED.items():
+        name = (f"decode_kernel<{k}, {s}, {bool(w)}, {bool(lay)}, "
+                f"{bool(pop)}>")
+        if name not in funcs:
+            raise RuntimeError(f"{name} is not in the listing")
+        res = layered_loops(funcs[name])
+        missing = [k for k in LAYERED_EDGES if res[k] is None]
+        if missing:
+            raise RuntimeError(f"{name}: no {missing[0]} loop")
+        out[label] = res
+    return out
+
+
 def count(path: pathlib.Path = _DECODE) -> dict:
     """Compile ``path`` to a cubin and count its edge loops; raises where
     ``nvcc`` or ``cuobjdump`` fails or a loop is not found."""
@@ -243,13 +338,15 @@ def count(path: pathlib.Path = _DECODE) -> dict:
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
     res = analyse(sass)
+    res["layered"] = analyse_layered(sass)
     res["source"] = str(path)
     res["nvcc"] = version.splitlines()[-1] if version else ""
     return res
 
 
 def summary(res: dict) -> str:
-    """One line: each instance's shared instructions an edge, per phase."""
+    """One line: each instance's shared instructions an edge, per phase
+    (B3's, with ``layered`` in ``res``, an edge-sweep)."""
     parts = []
     for label in INSTANCES:
         r = res[label]
@@ -259,6 +356,17 @@ def summary(res: dict) -> str:
             f"phase B {r['B']['shared_per_edge']:.3g} "
             f"({r['B']['instructions_per_edge']:.3g}), "
             f"{r['shared_per_edge']:.3g} in all")
+    for label, r in res.get("layered", {}).items():
+        parts.append(
+            f"{label}: syndrome {r['syndrome']['shared_per_edge']:.3g} "
+            f"shared ({r['syndrome']['instructions_per_edge']:.3g} "
+            f"instructions) an edge x {r['syndrome_share']:.3g}, fold "
+            f"{r['fold']['shared_per_edge']:.3g} "
+            f"({r['fold']['instructions_per_edge']:.3g}), delta "
+            f"{r['delta']['shared_per_edge']:.3g} "
+            f"({r['delta']['instructions_per_edge']:.3g}), "
+            f"{r['shared_per_edge']:.3g} ({r['instructions_per_edge']:.3g}) "
+            "an edge-sweep")
     return "; ".join(parts)
 
 

@@ -14,13 +14,15 @@ each slope is also given per element, beside the least time shared memory
 needs for the bytes the body moves an element (``smem_ceiling_ps``).
 
 The decoder's slope is ``(t(40) - t(10)) / 30`` of the cuda engine's fused
-kernel (``ops/cuda_static.make_static_sweep_decoder``, min-sum flooding) on
-0 dB words from ``sim.evaluate.transmit``, where nothing converges, in bf16
-and f32, best of 4 trials: at 128 words (one block on each of 128 SMs: the
-JAX key, latency) and at the main path's 32,768 words (throughput).  With
-both measured it prints an op-count model of one near-earth iteration:
-per word, 32,704 phase-A edge gathers and folds and as many phase-B gathers
-and rebuilds, each costed with the probes at the card-filling G.
+kernel (``ops/cuda_static.make_static_sweep_decoder``, min-sum) on 0 dB
+words from ``sim.evaluate.transmit``, where nothing converges, best of 4
+trials, at 128 words (one block on each of 128 SMs: the JAX key, latency)
+and at the main path's 32,768 words (throughput): flooding in bf16 and
+f32, microseconds an iteration, and layered in bf16, microseconds a
+sweep.  With the flooding slopes measured it prints an op-count model of
+one near-earth iteration: per word, 32,704 phase-A edge gathers and folds
+and as many phase-B gathers and rebuilds, each costed with the probes at
+the card-filling G.
 
 On the card::
 
@@ -58,6 +60,7 @@ TILES = (1, "fill")      # tile counts G; "fill": the card-filling G
 DECODER_TRIALS = 4
 DECODER_ITERS = (10, 40)
 DECODER_STORES = ("bfloat16", "float32")
+LAYERED_STORES = ("bfloat16",)   # the layered slopes' stores
 MAIN_WORDS = 32768
 DECODER_WORDS = (128, MAIN_WORDS)
 # the op-count model's primitives: the rotation's gather (mod-511 less the
@@ -99,23 +102,27 @@ def decoder_input(words: int, max_iters: int, t: int, dev) -> torch.Tensor:
 
 
 def decoder_slope_us(store: str, words: int, dev, iters=DECODER_ITERS,
-                     trials: int = DECODER_TRIALS) -> float:
-    """Microseconds per flooding iteration of the fused kernel on
-    ``words`` near-earth words at 0 dB (nothing converges)."""
+                     trials: int = DECODER_TRIALS,
+                     schedule: str = "flooding") -> float:
+    """Microseconds per iteration (flooding) or sweep (layered) of the
+    fused kernel on ``words`` near-earth words at 0 dB (nothing
+    converges)."""
     code = near_earth_code()
     times = {}
     for mi in iters:
         dec = make_static_sweep_decoder(code, mi, store_dtype=store,
-                                        device=dev)
+                                        schedule=schedule, device=dev)
         times[mi] = _best(lambda t, mi=mi: decoder_input(words, mi, t, dev),
                           dec, dev, trials)
     lo, hi = iters
     return (times[hi] - times[lo]) / (hi - lo) * 1e6
 
 
-def decoder_key(store: str, words: int) -> str:
-    """The result's key of a decoder slope: the JAX key at 128 words."""
-    key = f"decoder_us_per_iter_{store}"
+def decoder_key(store: str, words: int, schedule: str = "flooding") -> str:
+    """The result's key of a decoder slope: the JAX key at 128 words
+    (flooding); layered slopes are microseconds a sweep."""
+    key = (f"decoder_us_per_iter_{store}" if schedule == "flooding"
+           else f"decoder_us_per_sweep_{schedule}_{store}")
     return key if words == 128 else f"{key}_{words}"
 
 
@@ -189,12 +196,15 @@ def main(argv: list[str] | None = None) -> dict:
                       f"{per:9.3f} ps/element", file=sys.stderr, flush=True)
 
     if not args.skip_decoder:
-        for store in DECODER_STORES:
+        runs = ([(s, "flooding") for s in DECODER_STORES] +
+                [(s, "layered") for s in LAYERED_STORES])
+        for store, schedule in runs:
             for words in DECODER_WORDS:
-                us = decoder_slope_us(store, words, dev)
-                results[decoder_key(store, words)] = us
-                print(f"decoder {store} flooding, {words} words: {us:.3f} "
-                      f"us/iter ({us * 1e3 / words:.3f} ns/word-iter)",
+                us = decoder_slope_us(store, words, dev, schedule=schedule)
+                results[decoder_key(store, words, schedule)] = us
+                unit = "iter" if schedule == "flooding" else "sweep"
+                print(f"decoder {store} {schedule}, {words} words: {us:.3f} "
+                      f"us/{unit} ({us * 1e3 / words:.3f} ns/word-{unit})",
                       file=sys.stderr, flush=True)
 
     if results.get("fill") and all(n in results["fill"] for n in

@@ -210,6 +210,22 @@ def _high_degree_code():
     return QCCode(z=z, shifts=(row,), name="highdeg")
 
 
+def _random_code():
+    """z = 13, 3 block rows of 7 blocks of 0-2 shifts: the multi-shift code
+    of tests/test_torch_layered.py, drawn from the same generator."""
+    rng = np.random.default_rng(7)
+    for z, mb, nb in [(21, 2, 6), (13, 3, 7)]:
+        shifts = []
+        for _ in range(mb):
+            row = [tuple(sorted(rng.choice(z, size=int(rng.integers(0, 3)),
+                                           replace=False).tolist()))
+                   for _ in range(nb)]
+            if all(len(b) == 0 for b in row):
+                row[0] = (int(rng.integers(z)),)
+            shifts.append(tuple(row))
+    return QCCode(z=z, shifts=tuple(shifts), name="rand13")
+
+
 MINSUM_VARIANTS = [(k, s, sched, pc) for k in KINDS[:3] for s in STORES
                    for sched in SCHEDULES for pc in (False, True)]
 
@@ -229,7 +245,9 @@ def test_every_min_sum_variant_on_802_11n(lib, kind, store, schedule,
 @pytest.mark.parametrize("store,schedule,popcount", [
     ("bfloat16", "flooding", False), ("float32", "flooding", False),
     ("int8", "flooding", False), ("bfloat16", "flooding", True),
-    ("bfloat16", "layered", False)])
+    ("bfloat16", "layered", False), ("float32", "layered", False),
+    ("int8", "layered", False), ("bfloat16", "layered", True),
+    ("float32", "layered", True), ("int8", "layered", True)])
 @pytest.mark.parametrize("code", ["near-earth", "highdeg"])
 def test_b1_loops_on_near_earth_and_wide_checks(lib, code, store, schedule,
                                                 popcount, max_iters):
@@ -238,5 +256,68 @@ def test_b1_loops_on_near_earth_and_wide_checks(lib, code, store, schedule,
     llr = _llr(qc.n, snrs, 2, 9)
     got, want = _decode(lib, qc, llr, max_iters, "min-sum", store, schedule,
                         popcount)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 12])
+@pytest.mark.parametrize("kind,store,popcount", [
+    ("normalized-min-sum", "bfloat16", False),
+    ("normalized-min-sum", "int8", True),
+    ("offset-min-sum", "float32", False),
+    ("offset-min-sum", "bfloat16", True)])
+@pytest.mark.parametrize("code", ["near-earth", "highdeg"])
+def test_layered_kinds_on_near_earth_and_wide_checks(lib, code, kind, store,
+                                                     popcount, max_iters):
+    """The layered loops (z > 256 on near-earth: two checks a thread in the
+    row update; one on the d_c > 32 code) with a rebuilt magnitude."""
+    qc, snrs = ((near_earth_code(), (2.5, 3.5)) if code == "near-earth"
+                else (_high_degree_code(), (2.0, 4.0)))
+    llr = _llr(qc.n, snrs, 2, 9)
+    got, want = _decode(lib, qc, llr, max_iters, kind, store, "layered",
+                        popcount)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 12])
+@pytest.mark.parametrize("kind,store,popcount", [
+    ("min-sum", "bfloat16", False), ("min-sum", "int8", True),
+    ("normalized-min-sum", "float32", False),
+    ("offset-min-sum", "bfloat16", False)])
+def test_layered_loops_on_a_multi_shift_random_code(lib, kind, store,
+                                                    popcount, max_iters):
+    """Blocks of zero, one and two shifts, three block rows: the (block,
+    variable) items of the delta loop cover blocks of one and two slots."""
+    code = _random_code()
+    assert max(len(b) for row in code.shifts for b in row) == 2
+    llr = _llr(code.n, (0.5, 2.0, 4.0), 3, 13)
+    got, want = _decode(lib, code, llr, max_iters, kind, store, "layered",
+                        popcount)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if max_iters == 12:
+        assert got[2].any() and not got[2].all()
+
+
+@pytest.mark.parametrize("max_iters", [1, 12])
+@pytest.mark.parametrize("store,popcount", [("bfloat16", False),
+                                            ("int8", True)])
+def test_layered_loops_with_more_checks_than_threads_take(lib, store,
+                                                          popcount,
+                                                          max_iters):
+    """z = 600: (a) folds checks i0 and i0 + 300 a thread, and threads 0-43
+    take a second pair (i0 + 256); (c) takes j0 + q*150 of a block, so a
+    row's 4 blocks make 600 (block, j0) items for 256 threads."""
+    rng = np.random.default_rng(5)
+    z = 600
+    shifts = tuple(tuple(tuple(sorted(rng.choice(z, size=int(k),
+                                                 replace=False).tolist()))
+                         for k in row)
+                   for row in ((2, 1, 1, 2), (1, 2, 2, 1)))
+    code = QCCode(z=z, shifts=shifts, name="z600")
+    llr = _llr(code.n, (1.0, 3.0), 2, 17)
+    got, want = _decode(lib, code, llr, max_iters, "min-sum", store,
+                        "layered", popcount)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

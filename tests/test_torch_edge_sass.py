@@ -158,3 +158,131 @@ def test_count_raises_without_the_toolkit(monkeypatch):
     monkeypatch.setattr(edge_sass, "_nvcc", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         edge_sass.count()
+
+
+# B3's loops: a syndrome loop (0x10-0x80: one slot, two checks, LDS.64 +
+# 2 LDS.U16, two compares, two xors), row 0's fold with the parity
+# (0xa0-0x100: one check-edge, 2 FMNMX, an xor), a fold without it
+# (0x120-0x170), the delta loop (0x190-0x220: one edge, its entry and two
+# records, the subtract and the add carried from edge to edge through the
+# bf16 rounding), and the error count (0x240-0x270: a compare, no xor)
+_B3 = "_ZN12_GLOBAL__N_113decode_kernelILi0E13__nv_bfloat16Lb0ELb1ELb0EEEvNS_4ArgsE"
+_B3F = "_ZN12_GLOBAL__N_113decode_kernelILi0EfLb0ELb1ELb0EEEvNS_4ArgsE"
+_B3_BODY = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.64 R2, [R9] ;
+        /*0020*/                   LDS.U16 R4, [R2+UR4] ;
+        /*0030*/                   LDS.U16 R5, [R3+UR4] ;
+        /*0040*/                   FSETP.GEU.AND P1, PT, R4, RZ, PT ;
+        /*0050*/                   FSETP.GEU.AND P2, PT, R5, RZ, PT ;
+        /*0060*/               @!P1 LOP3.LUT R7, R7, 0x1, RZ, 0x3c, !PT ;
+        /*0070*/               @!P2 LOP3.LUT R8, R8, 0x1, RZ, 0x3c, !PT ;
+        /*0080*/               @P0 BRA 0x10 ;
+        /*0090*/                   BAR.RED.OR.DEFER_BLOCKING P0, 0x0, P1 ;
+        /*00a0*/                   LDS.64 R2, [R9] ;
+        /*00b0*/                   LDS.U16 R4, [R2+UR4] ;
+        /*00c0*/                   FSETP.GEU.AND P1, PT, R4, RZ, PT ;
+        /*00d0*/                   FMNMX R10, |R4|, R10, PT ;
+        /*00e0*/                   FMNMX R11, |R4|, R11, PT ;
+        /*00f0*/               @!P1 LOP3.LUT R7, R7, 0x1, RZ, 0x3c, !PT ;
+        /*0100*/               @P0 BRA 0xa0 ;
+        /*0110*/                   STS.128 [R12], R8 ;
+        /*0120*/                   LDS.64 R2, [R9] ;
+        /*0130*/                   LDS.U16 R4, [R2+UR4] ;
+        /*0140*/                   FMNMX R10, |R4|, R10, PT ;
+        /*0150*/                   FMNMX R11, |R4|, R11, PT ;
+        /*0160*/                   IADD3 R9, R9, 0x8, RZ ;
+        /*0170*/               @P0 BRA 0x120 ;
+        /*0180*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0190*/                   LDS.128 R12, [R9] ;
+        /*01a0*/                   LDS.128 R16, [R12+UR4] ;
+        /*01b0*/                   LDS.128 R20, [R13+UR4] ;
+        /*01c0*/                   LOP3.LUT R17, R17, 0x80000000, R24, 0x78, !PT ;
+        /*01d0*/                   LOP3.LUT R21, R21, 0x80000000, R24, 0x78, !PT ;
+        /*01e0*/                   FADD R28, -R17, R21 ;
+        /*01f0*/                   FADD R29, R28, R30 ;
+        /*0200*/                   F2FP.BF16.F32.PACK_AB R29, RZ, R29 ;
+        /*0210*/                   IMAD.U32 R30, R29, 0x10000, RZ ;
+        /*0220*/               @P0 BRA 0x190 ;
+        /*0230*/                   STS.U16 [R5], R30 ;
+        /*0240*/                   LDS.U16 R4, [R5] ;
+        /*0250*/                   FSETP.GEU.AND P3, PT, R4, RZ, PT ;
+        /*0260*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*0270*/               @P4 BRA 0x240 ;
+        /*0280*/                   EXIT ;
+"""
+
+
+def _layered_listing(names=(_B3, _B3F), body=_B3_BODY):
+    return "\n\tcode for sm_90a\n" + "".join(
+        f"\t\tFunction : {n}\n{body}" for n in names)
+
+
+def test_layered_loops_are_classified_and_weighed():
+    insns = edge_sass.parse(_layered_listing((_B3,)))[_B3]
+    res = edge_sass.layered_loops(insns)
+    assert [c["phase"] for c in res["loops"]] == [
+        "syndrome", "fold", "fold", "delta"]
+    syn, fold, delta = res["syndrome"], res["fold"], res["delta"]
+    assert (syn["edges"], syn["shared"], syn["xors"]) == (2, 3, 2)
+    assert syn["shared_per_edge"] == 1.5
+    # both folds take one check-edge: the one with fewer instructions
+    assert fold["start"] == "0x120" and fold["edges"] == 1
+    assert fold["shared_per_edge"] == 2.0
+    assert (delta["edges"], delta["shared"]) == (1, 3)
+    assert delta["shared_by_opcode"] == {"LDS.128": 3}
+    assert delta["conversions"] == 1
+    # row 0's fold takes the parity: the syndrome loop covers row 1 of 2
+    assert res["syndrome_share"] == 0.5
+    assert res["shared_per_edge"] == 0.5 * 1.5 + 2.0 + 3.0
+    assert res["instructions_per_edge"] == pytest.approx(
+        0.5 * 8 / 2 + 6 + 10)
+
+
+def test_layered_syndrome_covers_every_row_without_a_parity_fold():
+    """The layered sweep before its redesign: a syndrome pass over every
+    block row (xors of three inputs), a fold with no xor."""
+    body = _B3_BODY.replace("0x3c", "0x96").replace(
+        "@!P1 LOP3.LUT R7, R7, 0x1, RZ, 0x96, !PT ;\n        /*0100*/",
+        "IADD3 R6, R6, 0x1, RZ ;\n        /*0100*/")
+    insns = edge_sass.parse(_layered_listing((_B3,), body))[_B3]
+    res = edge_sass.layered_loops(insns)
+    assert res["syndrome_share"] == 1.0
+    assert res["syndrome"]["xors"] == 2
+    assert res["shared_per_edge"] == 1.5 + 2.0 + 3.0
+
+
+def test_accumulating_adds_drop_an_overwritten_register():
+    """R5 carries the total into the first add; once a load overwrites it,
+    an add that reads R5 adds no carried value."""
+    listing = """
+        Function : k
+        /*0000*/                   LDS R4, [R2] ;
+        /*0010*/                   FADD R6, R4, R5 ;
+        /*0020*/                   LDS R5, [R3] ;
+        /*0030*/                   FADD R7, R4, R5 ;
+        /*0040*/                   FADD R8, R6, R7 ;
+        /*0050*/                   MOV R5, R8 ;
+        /*0060*/              @P0 BRA 0x0 ;
+"""
+    body = edge_sass.parse(listing)["k"]
+    # FADD R6 (carried R5) and FADD R8 (from R6) accumulate; FADD R7 not
+    assert edge_sass.accumulating_adds(body) == 2
+
+
+def test_analyse_layered_and_summary():
+    res = edge_sass.analyse_layered(_layered_listing())
+    assert set(res) == set(edge_sass.LAYERED)
+    line = edge_sass.summary({**edge_sass.analyse(_listing()),
+                              "layered": res})
+    assert "B1 bfloat16: phase A 1.5 shared" in line
+    assert "B3 bfloat16: syndrome 1.5 shared" in line
+    assert "x 0.5" in line and "5.75 (18)" in line and "edge-sweep" in line
+
+
+def test_analyse_layered_raises_without_an_instance_or_a_loop():
+    with pytest.raises(RuntimeError, match="not in the listing"):
+        edge_sass.analyse_layered(_layered_listing((_B3,)))
+    no_delta = _B3_BODY.replace("FADD R29, R28, R30", "FADD R29, R28, R28")
+    with pytest.raises(RuntimeError, match="no delta loop"):
+        edge_sass.analyse_layered(_layered_listing(body=no_delta))

@@ -226,6 +226,23 @@ def test_edge_sass_counts_the_b1_loops(cuda):
         assert r["shared_per_edge"] <= 3
 
 
+# B3 before the redesign of its layered sweep (PERF.md: scripts/edge_sass.py
+# on that revision's decode.cu, bf16 and f32 alike): 14 shared instructions
+# an edge-sweep at near-earth (syndrome 3 + fold 2 + delta 9)
+B3_PARENT_SHARED_PER_EDGE_SWEEP = 14.0
+
+
+def test_edge_sass_counts_the_b3_loops(cuda):
+    from ldpc_tpu_torch.scripts import edge_sass
+    res = edge_sass.count()["layered"]
+    for label in edge_sass.LAYERED:
+        r = res[label]
+        for loop in ("syndrome", "fold", "delta"):
+            assert r[loop]["edges"] >= 1
+        assert r["syndrome_share"] == 0.5      # row 0's fold takes it
+        assert r["shared_per_edge"] < B3_PARENT_SHARED_PER_EDGE_SWEEP
+
+
 def _finite_llr(n, snrs, per, seed, device):
     """As _llr without the non-finite entries: the split decoder, as the
     Pallas pair, does not sanitise them and the fused kernel does."""

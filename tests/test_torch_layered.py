@@ -160,11 +160,18 @@ def test_layered_refuses_sum_product():
 
 
 def test_layered_smem_adds_the_row_scratch():
-    """z x (sign words + 4) 32-bit words: near-earth's 10,220 bytes."""
+    """One 16-byte scratch record per check of a block row (z x 16), a
+    (block row, block) table of 8 bytes an entry and a block count per block
+    row (4 bytes), and a (block row, slot) table of 16 bytes an entry in
+    place of the (block column, slot) one: near-earth's 8,696 bytes."""
     plan = DecodePlan.from_code(near_earth_code())
+    z, edges = plan.z, plan.block_rows * plan.dmax_cn
+    scratch = 16 * z                                      # 8,176
+    tables = (8 * edges + 4 * plan.block_rows +
+              16 * edges - 16 * plan.block_cols * plan.dmax_vn)   # 520
     for store in ("bfloat16", "float32", "int8"):
         extra = (smem_bytes(plan, "min-sum", store, "layered") -
                  smem_bytes(plan, "min-sum", store))
-        assert extra == 10_220
-    # flooding's 51,952 + the row scratch's 10,220
-    assert smem_bytes(plan, "min-sum", "bfloat16", "layered") == 62_172
+        assert extra == scratch + tables == 8_696
+    # flooding's 51,952 + the row scratch's 8,176 + the tables' 520
+    assert smem_bytes(plan, "min-sum", "bfloat16", "layered") == 60_648

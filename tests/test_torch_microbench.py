@@ -321,10 +321,21 @@ def test_script_on_cpu(monkeypatch, capsys):
         assert res["fill"][name]["tiles"] == 2
     for store in ("bfloat16", "float32"):
         assert np.isfinite(res[f"decoder_us_per_iter_{store}_2"])
+    assert np.isfinite(res["decoder_us_per_sweep_layered_bfloat16_2"])
     m = res["model"]
     assert m["words"] == 2 and m["edges_per_word"] == 32704
     assert set(m) >= {"measured_over_model_bfloat16",
                       "measured_over_model_float32"}
+
+
+def test_decoder_keys_name_the_schedule():
+    key = kernel_microbench.decoder_key
+    assert key("bfloat16", 128) == "decoder_us_per_iter_bfloat16"
+    assert key("float32", 32768) == "decoder_us_per_iter_float32_32768"
+    assert (key("bfloat16", 128, "layered") ==
+            "decoder_us_per_sweep_layered_bfloat16")
+    assert (key("bfloat16", 32768, "layered") ==
+            "decoder_us_per_sweep_layered_bfloat16_32768")
 
 
 def test_script_writes_only_with_out(monkeypatch, tmp_path, capsys):
