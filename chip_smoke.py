@@ -14,7 +14,11 @@ no result line:
            the sum-product bounds; the flooding edge loops of B1 and the
            layered ones of B3 (bf16 and f32) are counted from theirs
            (ldpc_tpu_torch/scripts/edge_sass.py, compiled beside the
-           build): shared-memory instructions an edge (B3: an edge-sweep).
+           build): shared-memory instructions an edge (B3: an edge-sweep);
+           and the edge loops of the split pair, B7 (edge_sass.py --split:
+           instructions, shared and global loads an edge of split_r's fold
+           and split_c's sum, bf16 and f32), beside the counts of split.cu
+           before its redesign (SPLIT_PARENT_SASS).
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -27,7 +31,9 @@ no result line:
 5. band    FER at 3.0 and 3.4 dB: the 95% Wilson interval must overlap the
            JAX package's measured one.
 6. profile one more batch at 3.0 and 3.4 dB under torch.profiler: device
-           time by kernel, device busy share.
+           time by kernel, device busy share; the kernel launches in the
+           trace are held against the launch counters, and where they
+           differ no busy share is reported as measured (profile_call).
 7. variants every (kind, store) of the kernel against its plain version on
            the same LLRs, 50 iterations: 802.11n rate 1/2 and 5/6 (2,048
            words each, in each one's waterfall), near-earth (512 words,
@@ -68,11 +74,15 @@ no result line:
            f32, every word; (c) the main path's stage-1 shape (32,768 words,
            12 iterations, 3.4 dB): split against fused, median of 7 calls;
            split_r and split_c alone, each held against its plain version on
-           the same state; host reads; bounds; global bytes a word; (d) the
-           giant path: synthetic_qc_code(2048, 8, 24), refused by the fused
-           kernel, 4,096 words at 4.0 dB, 8 iterations, through the split
-           pair (bit/s, iterations, FER), and 1,024 words at 1.1 dB, where
-           words fail, against the plain version; (e) the main path's 3.4 dB
+           the same state; host reads; bounds; global bytes a word; one
+           split decode under torch.profiler (profile_call: busy share,
+           time by kernel; unprofiled_share: its device time against the
+           decode's time without the profiler); (d) the giant path:
+           synthetic_qc_code(2048, 8, 24), refused by the fused kernel,
+           4,096 words at 4.0 dB, 8 iterations, through the split pair
+           (bit/s, iterations, FER), one such decode under the profiler,
+           and 1,024 words at 1.1 dB, where words fail, against the plain
+           version; (e) the main path's 3.4 dB
            batches again through a dep_stride=4 cascade (the barrier probe
            runs as it is built), every word equal, and barrier_lowers().
 12. microbench the kernel microbenchmark (B9, csrc/microbench.cu): (a) each
@@ -281,6 +291,15 @@ OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
 OPS_LAYERED = {"min-sum": (1, 8 + 6), "normalized-min-sum": (1, 9 + 8),
                "offset-min-sum": (1, 10 + 10)}
 
+# B7's edge loops in split.cu before its redesign (edge_sass.py --split
+# --source on that revision's split.cu, nvcc 12.9 on the H100's machine;
+# PERF.md): instructions, shared loads and global loads an edge
+SPLIT_PARENT_SASS = {"B7 split_r bfloat16": (39.75, 2, 1),
+                     "B7 split_r float32": (38.75, 2, 1),
+                     "B7 split_c bfloat16": (47, 3, 5),
+                     "B7 split_c float32": (40.75, 3, 4)}
+# the port's kernels among the profiler's device events
+OUR_KERNELS = re.compile(r"decode_kernel|split_[rc]<")
 SOURCE = "ldpc_tpu_torch/csrc/decode.cu"
 SPLIT_SOURCE = "ldpc_tpu_torch/csrc/split.cu"
 PROBE_SOURCE = "ldpc_tpu_torch/csrc/barrier_probe.cu"
@@ -408,11 +427,14 @@ def phase_card(dev) -> str:
 def phase_build() -> dict:
     from ldpc_tpu_torch.csrc import build, build_report
     sources = ("decode", "split", "barrier_probe", "microbench")
-    # the edge loops' cubin compiles beside the build, in a thread of its own
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # the edge loops' cubins compile beside the build, in threads of their
+    # own
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         edges = pool.submit(edge_sass.count)
+        split_edges = pool.submit(edge_sass.count_split)
         build(*sources)
     res = edges.result()
+    split_res = split_edges.result()
     reps = {}
     for name in sources:
         rep = reps[name] = build_report(name)
@@ -442,6 +464,11 @@ def phase_build() -> dict:
                                        for c in edge_sass.LAYERED_EDGES)
                    for k, r in res["layered"].items()]))
     reps["edge_sass"] = res
+    log("build", f"B7 edge loops: {edge_sass.split_summary(split_res)}; "
+        "before the redesign (instructions, shared and global loads an "
+        "edge): " + "; ".join(f"{k} {v}" for k, v in
+                              SPLIT_PARENT_SASS.items()))
+    reps["split_sass"] = split_res
     return reps
 
 
@@ -569,38 +596,87 @@ def phase_main(dev, code, gen) -> dict:
     return {**out, "max_memory_allocated": peak, "step": step}
 
 
-def phase_profile(dev, step, tag: str = "profile") -> None:
-    """One more batch at 3.0 and 3.4 dB under torch.profiler: device time
-    by kernel and the device's busy share of the batch's wall time."""
+def launch_total() -> int:
+    """Every launch the kernels' wrappers have counted so far."""
+    return (sum(cuda_static.launches.values()) +
+            sum(cuda_split.launches.values()))
+
+
+def profile_call(dev, fn, tag: str, label: str) -> dict:
+    """Run ``fn()`` under torch.profiler, once to warm the tracer up and
+    once recorded: device time by kernel and the device's busy share of
+    the wall time.  (On the H100 a trace started cold has dropped the first
+    launches of a call, all of a one-launch call.)  The launches of the
+    port's kernels that the trace holds are held against the launches the
+    wrappers counted in the recorded call: where they differ, the line says
+    so and no busy share is reported as measured."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        sync(dev)
+        prof.step()
+        before = launch_total()
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        counted = launch_total() - before
+        prof.step()
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        # the step's annotation spans the step on the device's timeline too
+        if (e.device_type == DeviceType.CUDA and
+                not e.name.startswith("ProfilerStep")):
+            row = by_name.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us()
+    seen = sum(c for name, (c, _) in by_name.items()
+               if OUR_KERNELS.search(name))
+    busy = sum(t for _, t in by_name.values())
+    res = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "launches_seen": seen, "launches_counted": counted,
+           "measured": bool(by_name) and seen == counted}
+    if res["measured"]:
+        res["busy_share"] = busy / wall_us
+        log(tag, f"{label}: {wall_us / 1e3:.2f} ms wall under the "
+            f"profiler, device busy {busy / 1e3:.2f} ms "
+            f"({100 * busy / wall_us:.1f}%); the trace holds all {seen} "
+            "kernel launches counted")
+    else:
+        log(tag, f"{label}: the trace holds {seen} of the {counted} kernel "
+            f"launches counted ({busy / 1e3:.2f} ms of device time in "
+            f"{wall_us / 1e3:.2f} ms wall): busy share not measured")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    for name, (count, t) in top:
+        log(tag, f"{label}:   {t / 1e3:9.3f} ms  {count:3d}x  {name[:90]}")
+    return res
+
+
+def unprofiled_share(prof: dict, wall_ms: float, tag: str,
+                     label: str) -> None:
+    """The profiler's CPU-side work stretches a call of many short host
+    steps (the split decode's host loop) beyond its unprofiled time: hold
+    the device time it saw against ``wall_ms``, the call's time without
+    the profiler, as the busy share (only where the trace holds every
+    launch counted)."""
+    if not prof["measured"]:
+        return
+    prof["busy_share_unprofiled"] = prof["busy_ms"] / wall_ms
+    log(tag, f"{label}: device busy {prof['busy_ms']:.3f} ms (profiler) "
+        f"against {wall_ms:.3f} ms unprofiled: "
+        f"{100 * prof['busy_ms'] / wall_ms:.1f}% busy")
+
+
+def phase_profile(dev, step, tag: str = "profile") -> None:
+    """One more batch at 3.0 and 3.4 dB under torch.profiler
+    (profile_call)."""
     for snr in PROFILE_SNRS:
         snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
-        sync(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(snr_db)
-            sync(dev)
-            wall_us = (time.perf_counter() - t0) * 1e6
-        by_name: dict[str, list] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                row = by_name.setdefault(e.name, [0, 0.0])
-                row[0] += 1
-                row[1] += e.time_range.elapsed_us()
-        if not by_name:
-            log(tag, f"{snr} dB: the profiler saw no device events; "
-                "device time not measured")
-            continue
-        busy = sum(t for _, t in by_name.values())
-        log(tag, f"{snr} dB: batch {wall_us / 1e3:.2f} ms wall under "
-            f"the profiler, device busy {busy / 1e3:.2f} ms "
-            f"({100 * busy / wall_us:.1f}%)")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        for name, (count, t) in top:
-            log(tag, f"{snr} dB:   {t / 1e3:9.3f} ms  {count:3d}x  "
-                f"{name[:90]}")
+        profile_call(dev, lambda: step(snr_db), tag, f"{snr} dB")
 
 
 def check_outputs(o: dict, n: int) -> None:
@@ -1039,10 +1115,11 @@ def _plain_launch(fn, s: SplitState, *args) -> SplitState:
 
 
 def _state_err(got: SplitState, want: SplitState, names) -> float:
-    """Max |kernel - plain| over the named planes (0 when all equal)."""
+    """Max |kernel - plain| over the named arrays (0 when all equal; the
+    records' words compared as integers)."""
     return max(float((getattr(got, n).double() -
                       getattr(want, n).double()).abs().max())
-               for n in names)
+               for n in names if getattr(got, n).numel())
 
 
 def split_bound(plan, store: str, live_r: int, live_c: int,
@@ -1126,6 +1203,12 @@ def phase_split(dev, code, gen) -> dict:
                                  f"fused kernel on {cm['mismatched']} words")
         split_ms = time_ms(lambda: split(llr), dev, reps=KERNEL_REPS)
         mono_ms = time_ms(lambda: mono(llr), dev, reps=KERNEL_REPS)
+        prof = profile_call(dev, lambda: split(llr), "11split",
+                            f"(c) {store} stage-1 split decode")
+        log("11split", f"(c) {store} stage-1 split decode under the "
+            f"profiler: {split.host_reads} host reads")
+        unprofiled_share(prof, split_ms, "11split",
+                         f"(c) {store} stage-1 split decode")
         it = kern[1].long()
         ok = kern[2]
         live_r = int(torch.where(ok, it + 1, PHASE1_ITERS + 1).sum())
@@ -1140,7 +1223,8 @@ def phase_split(dev, code, gen) -> dict:
             "word")
         # each kernel alone, against its plain version on the same state
         t = cuda_static._RefTables(plan, dev)
-        tables = torch.as_tensor(cuda_static.kernel_tables(plan), device=dev)
+        tables = torch.as_tensor(cuda_split.split_tables(plan, store),
+                                 device=dev)
         n_ok = torch.zeros(PHASE1_ITERS + 1, dtype=torch.int32, device=dev)
         st = SplitState.start(llr, plan, PHASE1_ITERS, store)
         errs = {}
@@ -1148,13 +1232,13 @@ def phase_split(dev, code, gen) -> dict:
             lambda: _plain_launch(split_r_reference, st, t, 0), dev)
         cuda_split.launch("r", st, plan, tables, n_ok, 0)
         sync(dev)
-        errs["r"] = _state_err(st, plain_r, ("m1", "m2", "am", "sp", "bits",
-                                             "errors", "iters", "success"))
+        errs["r"] = _state_err(st, plain_r, ("rec", "xbits", "errors",
+                                             "iters", "success"))
         plain_c, plain_ms_c = timed_once(
             lambda: _plain_launch(split_c_reference, st, t), dev)
         cuda_split.launch("c", st, plan, tables, n_ok)
         sync(dev)
-        errs["c"] = _state_err(st, plain_c, ("tot",))
+        errs["c"] = _state_err(st, plain_c, ("tot", "errors"))
         ms = {"r": time_ms(lambda: cuda_split.launch("r", st, plan, tables,
                                                      n_ok, 0),
                            dev, reps=KERNEL_REPS),
@@ -1184,7 +1268,7 @@ def phase_split(dev, code, gen) -> dict:
                          f" {live} live words, 3.4 dB"}
         out[f"stage1_{store}"] = {
             "split_ms": split_ms, "mono_ms": mono_ms, "host_reads": reads,
-            "bound_ms": dec_bnd, "bound_by": dec_by}
+            "bound_ms": dec_bnd, "bound_by": dec_by, "profile": prof}
     return out
 
 
@@ -1233,6 +1317,13 @@ def phase_giant(dev, gen) -> dict:
         f"(median {med * 1e3:.2f} ms of {TIMED_BATCHES}), avg iters "
         f"{avg_it:.3f}, FER {g['fer']:.5f}, {g['global_bytes_per_word']} "
         f"global bytes a word, {g['host_reads']} host reads; launches {got}")
+    llr = llr_batch(giant, GIANT_WORDS, GIANT_SNR, gen, dev)
+    g["profile"] = profile_call(dev, lambda: dec(llr), "11giant",
+                                f"{GIANT_WORDS} words at {GIANT_SNR} dB")
+    log("11giant", f"{GIANT_WORDS} words at {GIANT_SNR} dB under the "
+        f"profiler: {dec.host_reads} host reads")
+    unprofiled_share(g["profile"], med * 1e3, "11giant",
+                     f"{GIANT_WORDS} words at {GIANT_SNR} dB")
     llr = llr_batch(giant, GIANT_CHECK_WORDS, GIANT_FAIL_SNR, gen, dev)
     kern = dec(llr)
     plain = split_reference(llr, dec.plan, GIANT_ITERS, chunk=128)

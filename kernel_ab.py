@@ -16,11 +16,16 @@ sweeps, with both signs; int8 flooding at 12 iterations; and the
 phase-split pair (``ops/cuda_split.py``) at 12 iterations in bf16 and f32.
 Then the layered bf16 kernel's cost a sweep apart from convergence: the
 slope (t(40) - t(10)) / 30 of its decode of 0 dB words, where nothing
-converges, at 128 and 32,768 words.  It prints one JSON line per root.  The
-line holds the build's seconds, the registers ptxas gave each kernel
-instance, each case's ms, a hash of each case's outputs (the same across
-roots when their decodes agree) and the slopes in microseconds a sweep.  It
-needs one card; it exits non-zero without one.
+converges, at 128 and 32,768 words.  Then each split kernel alone, one
+launch of split_r (iteration 0) and of split_c on the stage-1 words' state
+before iteration 0, bf16 and f32; and the giant path, the split decode of
+4,096 words of ``synthetic_qc_code(2048, 8, 24)`` at 4.0 dB, 8 iterations,
+bf16.  It prints one JSON line per root.  The line holds the build's
+seconds, the registers ptxas gave each kernel instance, each case's ms, a
+hash of each case's outputs (the same across roots when their decodes
+agree), the slopes in microseconds a sweep, the split kernels' ms alone
+and the giant path's ms, bit/s and hash.  It needs one card; it exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ CASES = (("flooding[min-sum,bfloat16]", {}, 12),
          ("split[min-sum,float32]", {"store_dtype": "float32"}, 12))
 SLOPE_SWEEPS = (10, 40)
 SLOPE_WORDS = (128, 32768)
+SPLIT_ITERS = 12
+GIANT = dict(z=2048, block_rows=8, block_cols=24, words=4096, snr=4.0,
+             iters=8)
 
 
 def _short(demangled: str) -> str:
@@ -81,10 +89,12 @@ def child(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
-    from ldpc_tpu_torch.codes import near_earth_code
+    from ldpc_tpu_torch.codes import near_earth_code, synthetic_qc_code
     from ldpc_tpu_torch.csrc import build, build_report
+    from ldpc_tpu_torch.ops import cuda_split
     from ldpc_tpu_torch.ops.cuda_split import make_split_sweep_decoder
     from ldpc_tpu_torch.ops.cuda_static import make_static_sweep_decoder
+    from ldpc_tpu_torch.ops.plan import DecodePlan
     from ldpc_tpu_torch.sim.evaluate import transmit
     from ldpc_tpu_torch.utils.profiling import time_ms
 
@@ -103,11 +113,9 @@ def child(root: str) -> dict:
         make = (make_split_sweep_decoder if name.startswith("split")
                 else make_static_sweep_decoder)
         dec = make(code, iters, device=dev, **opts)
-        res = dec(llr)
-        digest = hashlib.sha256(b"".join(
-            x.cpu().numpy().tobytes() for x in res)).hexdigest()[:16]
         out["cases"][name] = {"ms": time_ms(lambda: dec(llr), dev, REPS),
-                              "iterations": iters, "outputs": digest}
+                              "iterations": iters,
+                              "outputs": _digest(dec(llr))}
     out["layered_us_per_sweep"] = {}
     lo, hi = SLOPE_SWEEPS
     for words in SLOPE_WORDS:
@@ -120,7 +128,40 @@ def child(root: str) -> dict:
             ms[sweeps] = time_ms(lambda: dec(llr0), dev, REPS)
         out["layered_us_per_sweep"][words] = ((ms[hi] - ms[lo]) /
                                               (hi - lo) * 1e3)
+    # each split kernel alone, on the state before iteration 0
+    plan = DecodePlan.from_code(code)
+    out["split_alone_ms"] = {}
+    for store in ("bfloat16", "float32"):
+        if hasattr(cuda_split, "split_tables"):
+            tab = cuda_split.split_tables(plan, store)
+        else:   # a revision before split_tables: the fused kernel's tables
+            from ldpc_tpu_torch.ops.cuda_static import kernel_tables
+            tab = kernel_tables(plan)
+        tables = torch.as_tensor(tab, device=dev)
+        st = cuda_split.SplitState.start(llr, plan, SPLIT_ITERS, store)
+        n_ok = torch.zeros(SPLIT_ITERS + 1, dtype=torch.int32, device=dev)
+        out["split_alone_ms"][store] = {
+            "split_r": time_ms(lambda: cuda_split.launch(
+                "r", st, plan, tables, n_ok, 0), dev, REPS),
+            "split_c": time_ms(lambda: cuda_split.launch(
+                "c", st, plan, tables, n_ok), dev, REPS)}
+    del llr, st
+    giant = synthetic_qc_code(GIANT["z"], GIANT["block_rows"],
+                              GIANT["block_cols"])
+    dec = make_split_sweep_decoder(giant, GIANT["iters"], device=dev)
+    snr = torch.full((GIANT["words"],), GIANT["snr"], dtype=torch.float32,
+                     device=dev)
+    llr = transmit(giant.n, snr, generator=gen)[0]
+    ms = time_ms(lambda: dec(llr), dev, REPS)
+    out["giant"] = {"ms": ms, "bit_per_s": GIANT["words"] * giant.n / ms * 1e3,
+                    "outputs": _digest(dec(llr))}
     return out
+
+
+def _digest(res) -> str:
+    """A hash of a decode's outputs."""
+    return hashlib.sha256(b"".join(
+        x.cpu().numpy().tobytes() for x in res)).hexdigest()[:16]
 
 
 def main(argv: list[str]) -> int:

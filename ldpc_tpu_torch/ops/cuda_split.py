@@ -20,7 +20,8 @@ kernel (``csrc/decode.cu``) refuses, such as
 
 On a CPU tensor it runs ``split_reference``.  ``split_r_reference`` and
 ``split_c_reference`` are the plain versions of one launch of each kernel,
-on the kernels' own state (:class:`SplitState`).
+on the kernels' own state (:class:`SplitState`, one 16-byte record a
+check); ``split_tables`` are the kernels' packed edge tables.
 
 Word for word it equals the fused kernel's min-sum flooding decode at the
 same store, non-converged words included, for finite LLRs: the fused
@@ -38,6 +39,7 @@ import collections
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..codes.qc import QCCode
@@ -45,33 +47,36 @@ from ..utils.device import resolve_device
 from .cuda_static import (_ARGMIN_LIMIT, STORES, _ld, _minsum_phase_a,
                           _minsum_phase_b, _MinSumState, _RefTables,
                           _reference, _reference_chunk, _sign_words, _st,
-                          _store_name, kernel_tables)
+                          _store_name)
 from .plan import DecodePlan
 
 __all__ = ["SplitState", "make_split_sweep_decoder", "split_reference",
-           "split_r_reference", "split_c_reference", "state_bytes",
-           "launch"]
+           "split_r_reference", "split_c_reference", "split_tables",
+           "state_bytes", "launch"]
 
 launches: collections.Counter = collections.Counter()
 
 _FLOAT_STORES = ("bfloat16", "float32")
 
 
+_RECORD = 16     # bytes of a check's record
+_SIGN_BIT = -(1 << 31)   # bit 31 of an int32
+
+
 @dataclasses.dataclass
 class SplitState:
     """The kernels' state of a batch of ``B`` words, word-major: ``chan``
-    and ``tot`` [B, n] and ``m1``, ``m2``, ``am`` (the argmin slot) and
-    ``sp`` (the sign product) [B, m] in the store; the sign words ``bits``
-    [B, m, ceil(dc/32)] int32 (bit d % 32 of word d // 32); the latches
-    ``errors``, ``iters`` and ``success`` [B] int32."""
+    and ``tot`` [B, n] in the store; ``rec`` [B, m, 4] int32, one record a
+    check: sign word 0 (bit d of slot d), m1 and m2 as the float32 bits of
+    the store's values with bit 31 set where the sign product is -1, the
+    argmin slot; ``xbits`` [B, m, ceil(dc/32) - 1] int32, the sign words
+    past the first; the latches ``errors``, ``iters`` and ``success`` [B]
+    int32."""
 
     chan: torch.Tensor
     tot: torch.Tensor
-    m1: torch.Tensor
-    m2: torch.Tensor
-    am: torch.Tensor
-    sp: torch.Tensor
-    bits: torch.Tensor
+    rec: torch.Tensor
+    xbits: torch.Tensor
     errors: torch.Tensor
     iters: torch.Tensor
     success: torch.Tensor
@@ -81,35 +86,54 @@ class SplitState:
               store: str) -> "SplitState":
         """The state before iteration 0, on ``llr``'s device: the channel
         rounded to the store, totals = -chan, a zero c2v rebuild (m1 = m2 =
-        0, argmin 0, sign product 1, no sign bits), iterations
-        ``max_iters``, nothing latched."""
+        0, argmin 0, sign product 1, no sign bits: all-zero records),
+        iterations ``max_iters``, nothing latched, no errors counted yet
+        (split_r counts iteration 0's)."""
         sd, dev, b = STORES[store], llr.device, llr.shape[0]
         chan = _st(llr, sd)
         i32 = dict(dtype=torch.int32, device=dev)
-        planes = [torch.zeros(b, plan.m, dtype=sd, device=dev)
-                  for _ in range(3)]
-        return cls(chan=chan, tot=_st(-_ld(chan), sd), m1=planes[0],
-                   m2=planes[1], am=planes[2],
-                   sp=torch.ones(b, plan.m, dtype=sd, device=dev),
-                   bits=torch.zeros(b, plan.m, _sign_words(plan), **i32),
+        # -chan in the store is exact: one pass, no widening
+        return cls(chan=chan, tot=-chan,
+                   rec=torch.zeros(b, plan.m, 4, **i32),
+                   xbits=torch.zeros(b, plan.m, _sign_words(plan) - 1, **i32),
                    errors=torch.zeros(b, **i32),
                    iters=torch.full((b,), max_iters, **i32),
                    success=torch.zeros(b, **i32))
 
 
+def split_tables(plan: DecodePlan, store: str = "bfloat16") -> np.ndarray:
+    """The kernels' int32 edge tables (the note in ``csrc/split.cu``):
+    ``ctab`` [nb, dv, 4] (per column slot: the byte offset of the record
+    of check ``mb*z - s``, the wrap threshold ``s*16``, the row slot ``d``
+    and ``31 - d % 32``), ``rtab`` [mb, dc, 2] (per row slot: the byte
+    offset of the total of variable ``nb*z + s`` and the wrap threshold
+    ``(z - s) * itemsize``), then the row and column degrees."""
+    z, dc = plan.z, plan.dmax_cn
+    width = STORES[_store_name(store)].itemsize
+    col_mb, col_d = plan.vn_slot // dc, plan.vn_slot % dc
+    s_c = plan.vn_shift % z
+    ctab = np.stack([(col_mb * z - s_c) * _RECORD, s_c * _RECORD, col_d,
+                     31 - col_d % 32], -1)
+    s_r = plan.cn_shift % z
+    rtab = np.stack([(plan.cn_nb * z + s_r) * width, (z - s_r) * width], -1)
+    parts = [ctab, rtab, plan.cn_valid.sum(axis=1), plan.vn_valid.sum(axis=1)]
+    return np.concatenate([np.asarray(p, np.int64).ravel() for p in parts]
+                          ).astype(np.int32)
+
+
 def state_bytes(plan: DecodePlan, store: str = "bfloat16") -> dict:
     """Device bytes a word: the whole state (``word``), and what a launch
     of each kernel moves for a live word, each input read once and each
-    output written once: ``split_r`` reads the totals and the old state and
-    writes the new state and the latches, ``split_c`` reads the channel
-    and the state and writes the totals."""
+    output written once: ``split_r`` reads the totals and the old records
+    and writes the new records and the latches, ``split_c`` reads the
+    channel and the records and writes the totals and the error count."""
     width = STORES[_store_name(store)].itemsize
     frame = plan.n * width
-    state = 4 * plan.m * width + 4 * plan.m * _sign_words(plan)
+    state = _RECORD * plan.m + 4 * plan.m * (_sign_words(plan) - 1)
     latches = 3 * 4
     return {"word": 2 * frame + state + latches,
             "split_r": frame + 2 * state + latches,
-            "split_c": 2 * frame + state}
+            "split_c": 2 * frame + state + 4}
 
 
 def _unsigned(bits: torch.Tensor) -> torch.Tensor:
@@ -129,37 +153,66 @@ def _keep(live: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 
 def _minsum_state(s: SplitState) -> _MinSumState:
-    return _MinSumState.from_planes(s.m1.clone(), s.m2.clone(), s.am.clone(),
-                                    s.sp.clone(), _unsigned(s.bits),
-                                    s.tot.dtype)
+    """The records as the plain version's planes, in the store (m1, m2 and
+    the argmin are exact there: the refusal of ``_ARGMIN_LIMIT`` keeps the
+    argmin in range)."""
+    store = s.tot.dtype
+    rec = s.rec
+
+    def mag(w: torch.Tensor) -> torch.Tensor:
+        return (w & 0x7FFFFFFF).view(torch.float32).to(store)
+
+    sp = torch.where(rec[..., 1] < 0, -1.0, 1.0).to(store)
+    bits = torch.cat([rec[..., :1], s.xbits], -1)
+    return _MinSumState.from_planes(mag(rec[..., 1]), mag(rec[..., 2]),
+                                    rec[..., 3].to(store), sp,
+                                    _unsigned(bits), store)
+
+
+def _records(ms: _MinSumState) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's planes as records and the sign words past the
+    first."""
+    sign = torch.where(_ld(ms.sp) < 0, _SIGN_BIT, 0).to(torch.int32)
+    bits = _signed(ms.bits)
+    m1 = _ld(ms.m1).view(torch.int32) | sign
+    m2 = _ld(ms.m2).view(torch.int32) | sign
+    rec = torch.stack([bits[..., 0], m1, m2, _ld(ms.am).to(torch.int32)], -1)
+    return rec, bits[..., 1:].contiguous()
+
+
+def _negatives(tot: torch.Tensor) -> torch.Tensor:
+    return (_ld(tot) < 0).sum(-1, dtype=torch.int32)
 
 
 def split_r_reference(s: SplitState, t: _RefTables, it: int) -> SplitState:
     """Plain version of one ``split_r`` launch: for every word not yet
-    latched, the new check state from the totals and the old state, then
-    the latches of iteration ``it``; latched words are left as they are."""
+    latched, the new records from the totals and the old records, then the
+    latches of iteration ``it`` (at ``it`` 0 also the error count of the
+    totals, which no ``split_c`` counted); latched words are left as they
+    are."""
     live = s.success == 0
     ms = _minsum_state(s)
     ok = _minsum_phase_a(s.tot, ms, t, "min-sum", 0.0, 0.0, False)
-    errs = (_ld(s.tot) < 0).sum(-1, dtype=torch.int32)
+    rec, xbits = _records(ms)
     newly = live & ok
+    errors = (torch.where(live, _negatives(s.tot), s.errors) if it == 0
+              else s.errors)
     return dataclasses.replace(
-        s, m1=_keep(live, ms.m1, s.m1), m2=_keep(live, ms.m2, s.m2),
-        am=_keep(live, ms.am, s.am), sp=_keep(live, ms.sp, s.sp),
-        bits=_keep(live, _signed(ms.bits), s.bits),
-        errors=torch.where(live, errs, s.errors),
-        iters=torch.where(newly, it, s.iters),
+        s, rec=_keep(live, rec, s.rec), xbits=_keep(live, xbits, s.xbits),
+        errors=errors, iters=torch.where(newly, it, s.iters),
         success=(s.success.bool() | newly).to(torch.int32))
 
 
 def split_c_reference(s: SplitState, t: _RefTables) -> SplitState:
     """Plain version of one ``split_c`` launch: for every word not yet
     latched, totals = -chan + its rebuilt c2v messages in column-edge
-    order, rounded to the store."""
+    order, rounded to the store, and the error count of those totals."""
     live = s.success == 0
     tot = _minsum_phase_b(s.chan, _minsum_state(s), t, "min-sum", 0.0,
                           0.0, s.tot.dtype)
-    return dataclasses.replace(s, tot=_keep(live, tot, s.tot))
+    return dataclasses.replace(
+        s, tot=_keep(live, tot, s.tot),
+        errors=torch.where(live, _negatives(tot), s.errors))
 
 
 def split_reference(llr: torch.Tensor, plan: DecodePlan, max_iters: int,
@@ -185,31 +238,45 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         from ..csrc import load
         lib = load("split")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.split_launch.argtypes = [i, i, i, i, i, i, i, i, i, i, p,
-                                     p, p, p, p, p, p, p, p, p, p, p, i, p]
-        lib.split_launch.restype = i
+        bind(lib)
         _LIB = lib
     return _LIB
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare ``split_launch``'s C signature on a library that holds it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.split_launch.argtypes = [i, i, i, i, i, i, i, i, i, i, p, p, p, p, p,
+                                 p, p, p, p, i, p]
+    lib.split_launch.restype = i
+
+
+def launch_args(phase: str, s: SplitState, plan: DecodePlan,
+                tables: torch.Tensor, n_ok: torch.Tensor, it: int,
+                stream) -> tuple:
+    """``split_launch``'s arguments for one launch on ``s``."""
+    store = str(s.tot.dtype).removeprefix("torch.")
+    return (0 if phase == "r" else 1, _FLOAT_STORES.index(store),
+            s.tot.shape[0], plan.n, plan.m, plan.z, plan.block_rows,
+            plan.block_cols, plan.dmax_cn, plan.dmax_vn, tables.data_ptr(),
+            s.chan.data_ptr(), s.tot.data_ptr(), s.rec.data_ptr(),
+            s.xbits.data_ptr(), s.errors.data_ptr(), s.iters.data_ptr(),
+            s.success.data_ptr(), n_ok.data_ptr(), it, stream)
 
 
 def launch(phase: str, s: SplitState, plan: DecodePlan,
            tables: torch.Tensor, n_ok: torch.Tensor, it: int = 0) -> None:
     """One launch of ``split_r`` (``phase="r"``, iteration ``it``, counting
     the latched words into ``n_ok[it]``) or ``split_c`` (``phase="c"``) on
-    the state ``s``, in place, on the current stream."""
+    the state ``s``, in place, on the current stream; ``tables`` is
+    ``split_tables(plan, store)`` on the state's device."""
     store = str(s.tot.dtype).removeprefix("torch.")
     dev = s.tot.device
     b = s.tot.shape[0]
     with torch.cuda.device(dev):
-        rc = _lib().split_launch(
-            0 if phase == "r" else 1, _FLOAT_STORES.index(store), b, plan.n,
-            plan.m, plan.z, plan.block_rows, plan.block_cols, plan.dmax_cn,
-            plan.dmax_vn, tables.data_ptr(), s.chan.data_ptr(),
-            s.tot.data_ptr(), s.m1.data_ptr(), s.m2.data_ptr(),
-            s.am.data_ptr(), s.sp.data_ptr(), s.bits.data_ptr(),
-            s.errors.data_ptr(), s.iters.data_ptr(), s.success.data_ptr(),
-            n_ok.data_ptr(), it, torch.cuda.current_stream(dev).cuda_stream)
+        rc = _lib().split_launch(*launch_args(
+            phase, s, plan, tables, n_ok, it,
+            torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"split_{phase} launch ({store}) failed: CUDA "
                            f"error {rc}")
@@ -247,7 +314,7 @@ def make_split_sweep_decoder(code: QCCode, max_iters: int = 50, *,
             f"check degree {plan.dmax_cn} exceeds the exact integer range "
             f"of the {store} argmin plane ({_ARGMIN_LIMIT[store]})")
     if dev.type == "cuda":
-        tables = torch.as_tensor(kernel_tables(plan), device=dev)
+        tables = torch.as_tensor(split_tables(plan, store), device=dev)
     else:
         ref_tables = _RefTables(plan, dev)
 
@@ -269,14 +336,34 @@ def make_split_sweep_decoder(code: QCCode, max_iters: int = 50, *,
                                    tables=ref_tables)
         s = SplitState.start(llr, plan, max_iters, store)
         n_ok = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
-        reads = 0
-        for it in range(max_iters + 1):
+        if b == 0:
+            decode_counts.host_reads = 0
+            return s.errors, s.iters, s.success.bool()
+        stream = torch.cuda.current_stream(dev)
+        # the latched counts, read by the host as each one lands
+        seen = torch.empty(max_iters, dtype=torch.int32, pin_memory=True)
+        copied = [torch.cuda.Event() for _ in range(max_iters)]
+
+        def enqueue(it: int) -> None:
+            # iteration it: split_r, the copy of its latched count to the
+            # host, then split_c (none after the last split_r)
             launch("r", s, plan, tables, n_ok, it)
-            if it == max_iters or b == 0:
-                break
-            launch("c", s, plan, tables, n_ok)
+            if it < max_iters:
+                seen[it:it + 1].copy_(n_ok[it:it + 1], non_blocking=True)
+                copied[it].record(stream)
+                launch("c", s, plan, tables, n_ok)
+
+        # Iteration it + 1 is enqueued before iteration it's count is read,
+        # so the card has work while the host waits: a latched word is
+        # frozen and its blocks return at once, so the one iteration run
+        # past convergence changes no output.
+        reads = 0
+        enqueue(0)
+        for it in range(max_iters):
+            enqueue(it + 1)
+            copied[it].synchronize()
             reads += 1
-            if int(n_ok[it]) == b:
+            if int(seen[it]) == b:
                 break
         decode_counts.host_reads = reads
         return s.errors, s.iters, s.success.bool()

@@ -1,5 +1,5 @@
 """Count the SASS of the fused kernel's edge loops, flooding (B1) and
-layered (B3), on the card's toolkit.
+layered (B3), and of the phase-split pair's (B7), on the card's toolkit.
 
 ``csrc/decode.cu`` is compiled to a cubin with the kernel's ``nvcc``
 flags for ``sm_90a`` and read with ``cuobjdump -sass``.  In the min-sum
@@ -38,15 +38,30 @@ the redesign of the layered sweep), so the syndrome loop covers the other
 block rows only: the sum an edge-sweep weighs it by (rows - 1) / rows at
 near-earth's 2 block rows, else by 1.
 
+With ``--split`` it counts the phase-split pair of ``csrc/split.cu``
+(B7) instead: in every instance of ``split_r`` and ``split_c`` with a
+check degree of at most 32 (bf16 and f32; each path of the instance's
+other template arguments, where it has any), the edge loop of ``split_r``
+is the innermost loop that holds an ``FMNMX`` (the two-min fold; edges:
+``FMNMX`` over 2) and that of ``split_c`` the innermost loop that holds no
+``FMNMX``, an accumulating float add and a load (the sum of a variable's
+messages; edges: those adds).  These loops read the device memory, so
+global loads do not rule a loop out here as they do in ``decode.cu``.
+For each it reports the instructions, the shared loads (``LDS*``) and the
+global loads (``LDG*``, ``LD``) an edge; where a kernel has several such
+loops, its line is the one with the most edges a body and, of those, the
+fewest instructions an edge.
+
 On the machine with the toolkit::
 
-    python -m ldpc_tpu_torch.scripts.edge_sass [--source PATH]
+    python -m ldpc_tpu_torch.scripts.edge_sass [--split] [--source PATH]
 
 prints one JSON line: per instance, each phase's shared instructions an
 edge, instructions an edge and the loop's counts, the sum over the phases
-(``layered``: B3's, an edge-sweep), and ``nvcc --version``'s last line.
-``--source`` counts another ``decode.cu`` (another revision's, unpacked
-with ``git archive``).
+(``layered``: B3's, an edge-sweep), and ``nvcc --version``'s last line
+(``--split``: per kernel and store, per path, the edge loop's counts).
+``--source`` counts another ``decode.cu`` (or ``split.cu``; another
+revision's, unpacked with ``git archive``).
 """
 
 from __future__ import annotations
@@ -63,8 +78,9 @@ import tempfile
 from ..csrc import NVCC_FLAGS, _nvcc
 from .phi_sass import _cuobjdump, _run
 
-_DECODE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / \
-    "decode.cu"
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+_DECODE = _CSRC / "decode.cu"
+_SPLIT = _CSRC / "split.cu"
 # mangled template arguments of decode_kernel<K, S, kWide, kLayered, kPop>
 _TYPES = {"13__nv_bfloat16": "bfloat16", "f": "float32", "a": "int8"}
 _KERNEL = re.compile(r"decode_kernelILi(\d+)E(13__nv_bfloat16|f|a)"
@@ -76,12 +92,22 @@ INSTANCES = {"B1 bfloat16": (0, "bfloat16", 0, 0, 0),
 LAYERED = {"B3 bfloat16": (0, "bfloat16", 0, 1, 0),
            "B3 float32": (0, "float32", 0, 1, 0)}
 NEAR_EARTH_ROWS = 2   # near-earth's block rows, for B3's sum an edge-sweep
+# mangled split_r / split_c <S, kWide[, more bools]> of csrc/split.cu
+_SPLIT_KERNEL = re.compile(r"split_([rc])I(13__nv_bfloat16|f)Lb([01])E"
+                           r"((?:Lb[01]E)*)E")
+# the split instances counted: each kernel and store, check degree <= 32
+SPLIT = {"B7 split_r bfloat16": ("r", "bfloat16"),
+         "B7 split_r float32": ("r", "float32"),
+         "B7 split_c bfloat16": ("c", "bfloat16"),
+         "B7 split_c float32": ("c", "float32")}
+SPLIT_LOOP = {"r": "fold", "c": "sum"}
 _XOR_LUTS = {"0x3c", "0x96"}   # a ^ b, a ^ b ^ c
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);")
 _REG = re.compile(r"\bR(\d+)\b")
 _CONVERSIONS = {"F2F", "F2FP", "F2I", "I2F", "I2FP", "FRND"}
 _GLOBAL = {"LDG", "LD", "LDGSTS", "STG", "ST"}
+_GLOBAL_LOADS = {"LDG", "LD"}
 
 Insn = collections.namedtuple("Insn", "addr pred op mods operands")
 
@@ -189,7 +215,9 @@ def loop_counts(body: list[Insn]) -> dict:
             "xors": sum(1 for i in body if i.op == "LOP3" and
                         i.operands.split(",")[-2].strip() in _XOR_LUTS),
             "accumulating_adds": accumulating_adds(body),
-            "global": sum(1 for i in body if i.op in _GLOBAL)}
+            "global": sum(1 for i in body if i.op in _GLOBAL),
+            "shared_loads": sum(1 for i in body if i.op == "LDS"),
+            "global_loads": sum(1 for i in body if i.op in _GLOBAL_LOADS)}
 
 
 def classify(c: dict) -> str | None:
@@ -280,6 +308,88 @@ def layered_loops(insns: list[Insn], rows: int = NEAR_EARTH_ROWS) -> dict:
     return res
 
 
+def classify_split(c: dict) -> str | None:
+    """``"fold"`` (split_r's edge loop), ``"sum"`` (split_c's) or None of a
+    loop's counts in a split instance."""
+    if c["fmnmx"]:
+        return "fold"
+    if c["accumulating_adds"] and (c["shared_loads"] or c["global_loads"]):
+        return "sum"
+    return None
+
+
+def split_loop(insns: list[Insn], kind: str) -> dict | None:
+    """The edge loop of class ``kind`` in a split instance (the most edges
+    a body, then the fewest instructions an edge) with its per-edge
+    counts, or None."""
+    cands = []
+    for body in innermost_loops(insns):
+        c = loop_counts(body)
+        if classify_split(c) != kind:
+            continue
+        edges = c["fmnmx"] / 2 if kind == "fold" else c["accumulating_adds"]
+        c.update(phase=kind, edges=edges,
+                 instructions_per_edge=c["instructions"] / edges,
+                 shared_loads_per_edge=c["shared_loads"] / edges,
+                 global_loads_per_edge=c["global_loads"] / edges)
+        cands.append(c)
+    return (min(cands, key=lambda c: (-c["edges"],
+                                      c["instructions_per_edge"]))
+            if cands else None)
+
+
+def split_instance(mangled: str) -> tuple | None:
+    """(kernel ``"r"`` or ``"c"``, store, kWide, the other template bools
+    as a string such as ``"01"``) of a mangled split kernel's name."""
+    m = _SPLIT_KERNEL.search(mangled)
+    if not m:
+        return None
+    k, s, w, rest = m.groups()
+    return k, _TYPES[s], bool(int(w)), "".join(re.findall(r"[01]", rest))
+
+
+def analyse_split(sass: str) -> dict:
+    """Per counted (kernel, store), per instance with a check degree of at
+    most 32 (keyed by its other template bools, ``""`` where it has
+    none), the edge loop's counts."""
+    insts = {}
+    for name, insns in parse(sass).items():
+        inst = split_instance(name)
+        if inst:
+            insts[inst] = insns
+    out = {}
+    for label, (k, store) in SPLIT.items():
+        found = {rest: insns for (kk, s, wide, rest), insns in insts.items()
+                 if (kk, s, wide) == (k, store, False)}
+        if not found:
+            raise RuntimeError(f"split_{k}<{store}, false> is not in the "
+                               "listing")
+        res = {}
+        for rest, insns in sorted(found.items()):
+            loop = split_loop(insns, SPLIT_LOOP[k])
+            if loop is None:
+                raise RuntimeError(f"split_{k}<{store}, false{rest}>: no "
+                                   f"{SPLIT_LOOP[k]} loop")
+            res[rest] = loop
+        out[label] = res
+    return out
+
+
+def split_summary(res: dict) -> str:
+    """One line: per counted split kernel and path, its edge loop's
+    instructions, shared loads and global loads an edge."""
+    parts = []
+    for label in SPLIT:
+        for rest, c in res[label].items():
+            parts.append(
+                f"{label}{' <' + rest + '>' if rest else ''}: "
+                f"{c['instructions_per_edge']:.3g} instructions, "
+                f"{c['shared_loads_per_edge']:.3g} shared and "
+                f"{c['global_loads_per_edge']:.3g} global loads an edge "
+                f"({c['edges']:g} edges a body)")
+    return "; ".join(parts)
+
+
 def instance_name(mangled: str) -> str | None:
     """``decode_kernel<K, S, kWide, kLayered, kPop>`` of a mangled name."""
     m = _KERNEL.search(mangled)
@@ -324,24 +434,38 @@ def analyse_layered(sass: str) -> dict:
     return out
 
 
-def count(path: pathlib.Path = _DECODE) -> dict:
-    """Compile ``path`` to a cubin and count its edge loops; raises where
-    ``nvcc`` or ``cuobjdump`` fails or a loop is not found."""
+def _sass(path: pathlib.Path) -> tuple[str, str]:
+    """``cuobjdump -sass`` of ``path`` compiled to a cubin with the build's
+    flags, and ``nvcc --version``'s last line."""
     nvcc = _nvcc()
     cuobjdump = _cuobjdump(nvcc)
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
                                                 "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
-        cubin = pathlib.Path(tmp) / "decode.cubin"
+        cubin = pathlib.Path(tmp) / "kernel.cubin"
         _run([nvcc, *flags, "-cubin", "-o", str(cubin), str(path)])
         sass = _run([cuobjdump, "-sass", str(cubin)])
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, timeout=60).stdout.strip()
+    return sass, version.splitlines()[-1] if version else ""
+
+
+def count(path: pathlib.Path = _DECODE) -> dict:
+    """Compile ``path`` to a cubin and count its edge loops; raises where
+    ``nvcc`` or ``cuobjdump`` fails or a loop is not found."""
+    sass, version = _sass(path)
     res = analyse(sass)
     res["layered"] = analyse_layered(sass)
     res["source"] = str(path)
-    res["nvcc"] = version.splitlines()[-1] if version else ""
+    res["nvcc"] = version
     return res
+
+
+def count_split(path: pathlib.Path = _SPLIT) -> dict:
+    """Compile a ``split.cu`` to a cubin and count its edge loops; raises
+    where ``nvcc`` or ``cuobjdump`` fails or a loop is not found."""
+    sass, version = _sass(path)
+    return {**analyse_split(sass), "source": str(path), "nvcc": version}
 
 
 def summary(res: dict) -> str:
@@ -372,9 +496,14 @@ def summary(res: dict) -> str:
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--source", type=pathlib.Path, default=_DECODE)
+    ap.add_argument("--split", action="store_true",
+                    help="count split.cu's loops instead of decode.cu's")
+    ap.add_argument("--source", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
-    res = count(args.source)
+    if args.split:
+        res = count_split(args.source or _SPLIT)
+    else:
+        res = count(args.source or _DECODE)
     print(json.dumps(res), flush=True)
     return res
 

@@ -286,3 +286,134 @@ def test_analyse_layered_raises_without_an_instance_or_a_loop():
     no_delta = _B3_BODY.replace("FADD R29, R28, R30", "FADD R29, R28, R28")
     with pytest.raises(RuntimeError, match="no delta loop"):
         edge_sass.analyse_layered(_layered_listing(body=no_delta))
+
+
+# B7's loops (csrc/split.cu, --split): split_r's fold reads a total from
+# device memory an edge (0x10-0x90: one table entry from shared memory
+# for two checks, two LDG totals, two edges of 2 FMNMX each), and a count
+# loop with a compare and no float add (0xb0-0xe0); split_c's sum reads a
+# 16-byte record an edge (0x10-0x70: an entry by LDG, two LDS.128
+# records, two accumulating FADDs)
+_SR = ("_ZN12_GLOBAL__N_17split_rI13__nv_bfloat16Lb0ELb1EEEvNS_8Geometry"
+       "ENS_5StateIT_EEi")
+_SR_GLOBAL = _SR.replace("Lb0ELb1EE", "Lb0ELb0EE")
+_SR_WIDE = _SR.replace("Lb0ELb1EE", "Lb1ELb1EE")
+_SC = _SR.replace("split_r", "split_c")
+_SR_BODY = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.64 R2, [R9] ;
+        /*0020*/                   LDG.E.U16.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0030*/                   LDG.E.U16.CONSTANT R5, desc[UR4][R6.64] ;
+        /*0040*/                   FADD R6, R4, -R7 ;
+        /*0050*/                   FMNMX R8, |R6|, R8, PT ;
+        /*0060*/                   FMNMX R9, |R6|, R9, PT ;
+        /*0070*/                   FMNMX R12, |R5|, R12, PT ;
+        /*0080*/                   FMNMX R13, |R5|, R13, PT ;
+        /*0090*/               @P0 BRA 0x10 ;
+        /*00a0*/                   STG.E.128 desc[UR4][R2.64], R8 ;
+        /*00b0*/                   LDS.U16 R4, [R5] ;
+        /*00c0*/                   FSETP.GEU.AND P3, PT, R4, RZ, PT ;
+        /*00d0*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*00e0*/               @P4 BRA 0xb0 ;
+        /*00f0*/                   EXIT ;
+"""
+_SC_BODY = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.128.CONSTANT R12, desc[UR4][R2.64] ;
+        /*0020*/                   LDS.128 R16, [R12+UR4] ;
+        /*0030*/                   LDS.128 R20, [R13+UR4] ;
+        /*0040*/                   LOP3.LUT R17, R17, 0x80000000, R24, 0x78, !PT ;
+        /*0050*/                   FADD R26, R26, R17 ;
+        /*0060*/                   FADD R27, R27, R21 ;
+        /*0070*/               @P0 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def _split_listing(bodies):
+    return "\n\tcode for sm_90a\n" + "".join(
+        f"\t\tFunction : {name}\n{body}" for name, body in bodies)
+
+
+def _split_pair(store_names=("13__nv_bfloat16", "f")):
+    """split_r and split_c in both stores, staged and not."""
+    out = []
+    for s in store_names:
+        for r in (_SR, _SR_GLOBAL):
+            name = r.replace("13__nv_bfloat16", s)
+            out += [(name, _SR_BODY),
+                    (name.replace("split_r", "split_c"), _SC_BODY)]
+    return out
+
+
+def test_split_instances_from_mangled_names():
+    assert edge_sass.split_instance(_SR) == ("r", "bfloat16", False, "1")
+    assert edge_sass.split_instance(_SR_WIDE) == ("r", "bfloat16", True,
+                                                  "1")
+    # before the redesign: split_r<S, kWide> only
+    old = _SR.replace("Lb0ELb1EE", "Lb0EE").replace("13__nv_bfloat16", "f")
+    assert edge_sass.split_instance(old) == ("r", "float32", False, "")
+    assert edge_sass.split_instance(_B1) is None
+    assert edge_sass.instance_name(_SR) is None
+
+
+def test_split_fold_counts_its_global_loads():
+    """The fold reads device memory: global loads do not rule it out, as
+    they rule out a loop of decode.cu."""
+    body = edge_sass.parse(_split_listing([(_SR, _SR_BODY)]))[_SR]
+    c = edge_sass.split_loop(body, "fold")
+    assert edge_sass.classify(edge_sass.loop_counts(
+        edge_sass.innermost_loops(body)[0])) is None
+    assert (c["instructions"], c["edges"]) == (9, 2)
+    assert (c["shared_loads"], c["global_loads"]) == (1, 2)
+    assert c["shared_loads_per_edge"] == 0.5
+    assert c["global_loads_per_edge"] == 1.0
+    assert c["instructions_per_edge"] == 4.5
+    # the count loop (a compare, no add) is no edge loop of split_c
+    assert edge_sass.split_loop(body, "sum") is None
+
+
+def test_split_sum_counts_record_loads():
+    body = edge_sass.parse(_split_listing([(_SC, _SC_BODY)]))[_SC]
+    c = edge_sass.split_loop(body, "sum")
+    assert (c["instructions"], c["edges"]) == (7, 2)
+    assert c["shared_by_opcode"] == {"LDS.128": 2}
+    assert (c["shared_loads_per_edge"], c["global_loads_per_edge"]) == (
+        1.0, 0.5)
+    assert edge_sass.split_loop(body, "fold") is None
+
+
+def test_analyse_split_keys_each_path_and_summary():
+    res = edge_sass.analyse_split(_split_listing(_split_pair()))
+    assert set(res) == set(edge_sass.SPLIT)
+    assert set(res["B7 split_r bfloat16"]) == {"0", "1"}
+    assert res["B7 split_c float32"]["1"]["phase"] == "sum"
+    line = edge_sass.split_summary(res)
+    assert ("B7 split_r bfloat16 <1>: 4.5 instructions, 0.5 shared and 1 "
+            "global loads an edge (2 edges a body)") in line
+    assert "B7 split_c float32 <0>: 3.5 instructions" in line
+
+
+def test_analyse_split_raises_without_an_instance_or_a_loop():
+    """A kernel whose loops hold neither a fold nor a sum raises, as does a
+    listing without the instance; the wide instances are not counted."""
+    with pytest.raises(RuntimeError, match="not in the listing"):
+        edge_sass.analyse_split(_split_listing(
+            [(n, b) for n, b in _split_pair() if "split_c" not in n]))
+    neither = _SC_BODY.replace("FADD R26, R26, R17", "FMUL R26, R25, R17")
+    neither = neither.replace("FADD R27, R27, R21", "FMUL R27, R25, R21")
+    pairs = [(n, neither if "split_c" in n else b)
+             for n, b in _split_pair()]
+    with pytest.raises(RuntimeError, match="no sum loop"):
+        edge_sass.analyse_split(_split_listing(pairs))
+    wide_only = [(n.replace("Lb0EL", "Lb1EL"), b) for n, b in _split_pair()]
+    with pytest.raises(RuntimeError, match="not in the listing"):
+        edge_sass.analyse_split(_split_listing(wide_only))
+
+
+def test_count_split_raises_without_the_toolkit(monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(edge_sass, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        edge_sass.count_split()

@@ -282,32 +282,52 @@ def test_split_matches_plain_version_and_mono(cuda, code, store):
         assert torch.equal(g, m)
 
 
-@pytest.mark.parametrize("store", ["bfloat16", "float32"])
-def test_split_launches_match_their_plain_versions(cuda, store):
-    """One launch of split_r, then of split_c, on the same state as their
-    plain versions: every plane and latch equal."""
+def _split_launches(cuda, code, llr, store):
+    """One launch of split_r, then of split_c, after a few plain iterations
+    (so that some words latch), on the same state as their plain versions:
+    every array and latch equal."""
     from ldpc_tpu_torch.ops import cuda_split
-    code = near_earth_code()
     plan = DecodePlan.from_code(code)
-    llr = _finite_llr(code.n, (2.0, 3.0, 4.0), 64, seed=9, device=cuda)
     t = cuda_static._RefTables(plan, cuda)
-    tables = torch.as_tensor(cuda_static.kernel_tables(plan), device=cuda)
+    tables = torch.as_tensor(cuda_split.split_tables(plan, store),
+                             device=cuda)
     s = cuda_split.SplitState.start(llr, plan, 10, store)
-    for it in range(3):      # a few plain iterations, so some words latch
+    for it in range(3):
         s = cuda_split.split_c_reference(
             cuda_split.split_r_reference(s, t, it), t)
+    assert 0 < int(s.success.sum()) < llr.shape[0]
     n_ok = torch.zeros(11, dtype=torch.int32, device=cuda)
     want = cuda_split.split_r_reference(s, t, 3)
     cuda_split.launch("r", s, plan, tables, n_ok, 3)
     torch.cuda.synchronize()
-    for name in ("m1", "m2", "am", "sp", "bits", "errors", "iters",
-                 "success"):
+    for name in ("rec", "xbits", "errors", "iters", "success"):
         assert torch.equal(getattr(s, name), getattr(want, name)), name
     assert int(n_ok[3]) == int(want.success.sum())
     want = cuda_split.split_c_reference(s, t)
     cuda_split.launch("c", s, plan, tables, n_ok)
     torch.cuda.synchronize()
     assert torch.equal(s.tot, want.tot)
+    assert torch.equal(s.errors, want.errors)
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+def test_split_launches_match_their_plain_versions(cuda, store):
+    """Near-earth: both kernels stage the word in shared memory."""
+    code = near_earth_code()
+    llr = _finite_llr(code.n, (2.0, 3.0, 4.0), 64, seed=9, device=cuda)
+    _split_launches(cuda, code, llr, store)
+
+
+@pytest.mark.parametrize("store", ["bfloat16", "float32"])
+def test_split_launches_match_their_plain_versions_on_the_giant_code(
+        cuda, store):
+    """synthetic_qc_code(2048, 8, 24), 64 words: split_c reads the records
+    from device memory, and so does split_r the totals in f32 (in bf16
+    it stages them, 96 KB, past the 48 KB opt-in)."""
+    from ldpc_tpu_torch.codes import synthetic_qc_code
+    code = synthetic_qc_code(2048, 8, 24)
+    llr = _finite_llr(code.n, (1.1, 4.0), 32, seed=12, device=cuda)
+    _split_launches(cuda, code, llr, store)
 
 
 def test_split_decodes_a_code_the_fused_kernel_refuses(cuda):

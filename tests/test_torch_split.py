@@ -142,7 +142,7 @@ def test_launch_plain_versions_give_split_reference(store):
         before = s
         s = split_r_reference(s, t, it)
         done = before.success.bool()
-        for name in ("m1", "m2", "am", "sp", "bits", "errors", "iters"):
+        for name in ("rec", "xbits", "errors", "iters"):
             assert torch.equal(getattr(s, name)[done],
                                getattr(before, name)[done])
         if it == MAX_ITERS:
@@ -190,17 +190,23 @@ def test_split_decoder_refuses_as_jax():
 
 
 def test_state_bytes():
-    """A near-earth word's state in device memory (bf16: 44,980 bytes) and
-    a giant synthetic code's, which no block's shared memory holds."""
+    """A near-earth word's state in device memory (bf16: the channel and
+    the totals, 2 bytes a variable each, one 16-byte record a check and 3
+    int32 latches: 49,068 bytes) and what each launch moves, and a giant
+    synthetic code's, which no block's shared memory holds."""
     ne = DecodePlan.from_code(near_earth_code())
-    assert state_bytes(ne)["word"] == 4 * 2 * 1022 + 4 * 1022 + 2 * 2 * 8176 \
-        + 12 == 44980
-    assert state_bytes(ne)["split_r"] + state_bytes(ne)["split_c"] == 85860
+    frame, records = 2 * 8176, 16 * 1022
+    assert state_bytes(ne)["word"] == 2 * frame + records + 12 == 49068
+    # split_r: the totals in, the records in and out, the latches
+    assert state_bytes(ne)["split_r"] == frame + 2 * records + 12
+    # split_c: the channel in, the totals out, the records in, the errors
+    assert state_bytes(ne)["split_c"] == 2 * frame + records + 4
+    assert state_bytes(ne, "float32")["word"] == 4 * frame + records + 12
     giant = DecodePlan.from_code(synthetic_qc_code(2048, 8, 24))
-    assert state_bytes(giant)["word"] == 393216 + 12
+    assert state_bytes(giant)["word"] == 2 * 2 * 49152 + 16 * 16384 + 12
     assert cuda_static.smem_bytes(giant) > cuda_static._MAX_SMEM
-    assert state_bytes(giant, "float32")["word"] == 2 * 393216 - 16384 * 4 \
-        + 12
+    assert state_bytes(giant, "float32")["word"] == 4 * 2 * 49152 + \
+        16 * 16384 + 12
 
 
 def test_barrier_probe_plain_version():
