@@ -17,8 +17,9 @@ no result line:
            build): shared-memory instructions an edge (B3: an edge-sweep);
            and the edge loops of the split pair, B7 (edge_sass.py --split:
            instructions, shared and global loads an edge of split_r's fold
-           and split_c's sum, bf16 and f32), beside the counts of split.cu
-           before its redesign (SPLIT_PARENT_SASS).
+           and split_c's sum, bf16 and f32), beside the recorded counts of
+           split.cu before its redesign (SPLIT_PARENT_SASS, not measured in
+           the run).
 3. kernel  min-sum bf16 (the near-earth main path's variant) against its
            plain PyTorch version on the same LLRs: 2,048 words at 3.0 and
            3.4 dB (50 iterations) and the main path's own shapes (32,768
@@ -76,8 +77,7 @@ no result line:
            split_r and split_c alone, each held against its plain version on
            the same state; host reads; bounds; global bytes a word; one
            split decode under torch.profiler (profile_call: busy share,
-           time by kernel; unprofiled_share: its device time against the
-           decode's time without the profiler); (d) the giant path:
+           time by kernel); (d) the giant path:
            synthetic_qc_code(2048, 8, 24), refused by the fused kernel,
            4,096 words at 4.0 dB, 8 iterations, through the split pair
            (bit/s, iterations, FER), one such decode under the profiler,
@@ -133,7 +133,7 @@ from ldpc_tpu_torch import cli
 from ldpc_tpu_torch.codes import (QCCode, near_earth_code,
                                   synthetic_qc_code, wifi_code)
 from ldpc_tpu_torch.ops import cuda_split, cuda_static, microbench
-from ldpc_tpu_torch.ops.cuda_split import (SplitState,
+from ldpc_tpu_torch.ops.cuda_split import (SplitState, least_bytes,
                                            make_split_sweep_decoder,
                                            split_c_reference,
                                            split_r_reference,
@@ -291,9 +291,10 @@ OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
 OPS_LAYERED = {"min-sum": (1, 8 + 6), "normalized-min-sum": (1, 9 + 8),
                "offset-min-sum": (1, 10 + 10)}
 
-# B7's edge loops in split.cu before its redesign (edge_sass.py --split
-# --source on that revision's split.cu, nvcc 12.9 on the H100's machine;
-# PERF.md): instructions, shared loads and global loads an edge
+# B7's edge loops in split.cu before its redesign, as recorded once from
+# split.cu at commit 6764371 (edge_sass.py --split --source, nvcc 12.9 on
+# an H100 machine; PERF.md), not measured in a run: instructions, shared
+# loads and global loads an edge
 SPLIT_PARENT_SASS = {"B7 split_r bfloat16": (39.75, 2, 1),
                      "B7 split_r float32": (38.75, 2, 1),
                      "B7 split_c bfloat16": (47, 3, 5),
@@ -465,7 +466,8 @@ def phase_build() -> dict:
                    for k, r in res["layered"].items()]))
     reps["edge_sass"] = res
     log("build", f"B7 edge loops: {edge_sass.split_summary(split_res)}; "
-        "before the redesign (instructions, shared and global loads an "
+        "split.cu at 6764371, before the redesign, as recorded (not "
+        "measured in this run; instructions, shared and global loads an "
         "edge): " + "; ".join(f"{k} {v}" for k, v in
                               SPLIT_PARENT_SASS.items()))
     reps["split_sass"] = split_res
@@ -654,21 +656,6 @@ def profile_call(dev, fn, tag: str, label: str) -> dict:
     for name, (count, t) in top:
         log(tag, f"{label}:   {t / 1e3:9.3f} ms  {count:3d}x  {name[:90]}")
     return res
-
-
-def unprofiled_share(prof: dict, wall_ms: float, tag: str,
-                     label: str) -> None:
-    """The profiler's CPU-side work stretches a call of many short host
-    steps (the split decode's host loop) beyond its unprofiled time: hold
-    the device time it saw against ``wall_ms``, the call's time without
-    the profiler, as the busy share (only where the trace holds every
-    launch counted)."""
-    if not prof["measured"]:
-        return
-    prof["busy_share_unprofiled"] = prof["busy_ms"] / wall_ms
-    log(tag, f"{label}: device busy {prof['busy_ms']:.3f} ms (profiler) "
-        f"against {wall_ms:.3f} ms unprofiled: "
-        f"{100 * prof['busy_ms'] / wall_ms:.1f}% busy")
 
 
 def phase_profile(dev, step, tag: str = "profile") -> None:
@@ -1125,11 +1112,11 @@ def _state_err(got: SplitState, want: SplitState, names) -> float:
 def split_bound(plan, store: str, live_r: int, live_c: int,
                 batch: int) -> tuple[float, str]:
     """Least time on an H100 for ``live_r`` words' split_r work and
-    ``live_c`` words' split_c work of ``batch`` words: the bytes each moves
-    (state_bytes; each launch reads every word's success flag) over the HBM
-    rate vs 8 (phase A) and 3 (phase B) f32 operations per edge and live
-    word over peak."""
-    sb = state_bytes(plan, store)
+    ``live_c`` words' split_c work of ``batch`` words: the least bytes the
+    work moves, whatever the layout (least_bytes; each launch reads every
+    word's success flag), over the HBM rate vs 8 (phase A) and 3 (phase B)
+    f32 operations per edge and live word over peak."""
+    sb = least_bytes(plan, store)
     edges = int(plan.cn_valid.sum()) * plan.z
     n_launch = (live_r > 0) + (live_c > 0)
     t_bytes = ((live_r * sb["split_r"] + live_c * sb["split_c"] +
@@ -1207,14 +1194,12 @@ def phase_split(dev, code, gen) -> dict:
                             f"(c) {store} stage-1 split decode")
         log("11split", f"(c) {store} stage-1 split decode under the "
             f"profiler: {split.host_reads} host reads")
-        unprofiled_share(prof, split_ms, "11split",
-                         f"(c) {store} stage-1 split decode")
         it = kern[1].long()
         ok = kern[2]
         live_r = int(torch.where(ok, it + 1, PHASE1_ITERS + 1).sum())
         live_c = int(torch.where(ok, it, PHASE1_ITERS).sum())
         dec_bnd, dec_by = split_bound(plan, store, live_r, live_c, BATCH)
-        sb = state_bytes(plan, store)
+        sb, lb = state_bytes(plan, store), least_bytes(plan, store)
         log("11split", f"(c) {store} stage 1 ({BATCH} words, "
             f"{PHASE1_ITERS} it, 3.4 dB): split {split_ms:.3f} ms vs fused "
             f"{mono_ms:.3f} ms ({split_ms / mono_ms:.3f}x), {reads} host "
@@ -1251,8 +1236,9 @@ def phase_split(dev, code, gen) -> dict:
                                   live if k == "c" else 0, BATCH)
             log("11split", f"(c) split_{k} {store} alone: {ms[k]:.4f} ms, "
                 f"plain {plain_ms:.1f} ms, bound {bnd:.4f} ms ({by}; {live} "
-                f"live words, {sb['split_' + k]} bytes each), max |kernel - "
-                f"plain| {errs[k]}")
+                f"live words, at least {lb['split_' + k]} bytes each; the "
+                f"records move {sb['split_' + k]}), max |kernel - plain| "
+                f"{errs[k]}")
             if errs[k]:
                 raise AssertionError(f"split_{k} {store} differs from its "
                                      "plain version")
@@ -1264,6 +1250,7 @@ def phase_split(dev, code, gen) -> dict:
                 "words_checked": row["checked"],
                 "global_bytes_per_word": sb["word"],
                 "bytes_per_live_word": sb["split_" + k],
+                "least_bytes_per_live_word": lb["split_" + k],
                 "shape": f"{BATCH} words x {code.n} (near-earth), one launch,"
                          f" {live} live words, 3.4 dB"}
         out[f"stage1_{store}"] = {
@@ -1322,8 +1309,6 @@ def phase_giant(dev, gen) -> dict:
                                 f"{GIANT_WORDS} words at {GIANT_SNR} dB")
     log("11giant", f"{GIANT_WORDS} words at {GIANT_SNR} dB under the "
         f"profiler: {dec.host_reads} host reads")
-    unprofiled_share(g["profile"], med * 1e3, "11giant",
-                     f"{GIANT_WORDS} words at {GIANT_SNR} dB")
     llr = llr_batch(giant, GIANT_CHECK_WORDS, GIANT_FAIL_SNR, gen, dev)
     kern = dec(llr)
     plain = split_reference(llr, dec.plan, GIANT_ITERS, chunk=128)

@@ -30,7 +30,7 @@ from ldpc_tpu.sim.evaluate import make_staged_sweep_device as jax_staged_sweep
 from ldpc_tpu_torch.codes import (near_earth_code, synthetic_qc_code,
                                   wifi_code)
 from ldpc_tpu_torch.ops import cuda_static
-from ldpc_tpu_torch.ops.cuda_split import (SplitState,
+from ldpc_tpu_torch.ops.cuda_split import (SplitState, least_bytes,
                                            make_split_sweep_decoder,
                                            split_c_reference,
                                            split_r_reference,
@@ -207,6 +207,29 @@ def test_state_bytes():
     assert cuda_static.smem_bytes(giant) > cuda_static._MAX_SMEM
     assert state_bytes(giant, "float32")["word"] == 4 * 2 * 49152 + \
         16 * 16384 + 12
+
+
+@pytest.mark.parametrize("store, width", [("bfloat16", 2), ("float32", 4)])
+def test_least_bytes(store, width):
+    """The bound's bytes: a near-earth check (degree 32) holds 32 sign
+    bits, m1 and m2 without their sign bits and a 5-bit argmin, 67 bits in
+    bf16 and 99 in f32, fewer than its record's 16 bytes and, in bf16,
+    than the 12 bytes of the planes before the record; a giant synthetic
+    code's checks (degree 9) hold 43 bits in bf16."""
+    ne = DecodePlan.from_code(near_earth_code())
+    bits = 32 + 2 * (8 * width - 1) + 5
+    state = -(-1022 * bits // 8)
+    frame = width * 8176
+    lb, sb = least_bytes(ne, store), state_bytes(ne, store)
+    assert lb == {"state": state, "split_r": frame + 2 * state + 12,
+                  "split_c": 2 * frame + state + 4}
+    assert state < 16 * 1022
+    assert lb["split_r"] < sb["split_r"] and lb["split_c"] < sb["split_c"]
+    if store == "bfloat16":
+        assert state < 12 * 1022
+    giant = DecodePlan.from_code(synthetic_qc_code(2048, 8, 24))
+    assert least_bytes(giant, store)["state"] == \
+        -(-16384 * (9 + 2 * (8 * width - 1) + 4) // 8)
 
 
 def test_barrier_probe_plain_version():
