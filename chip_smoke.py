@@ -15,6 +15,10 @@ no result line:
            layered ones of B3 (bf16 and f32) are counted from theirs
            (ldpc_tpu_torch/scripts/edge_sass.py, compiled beside the
            build): shared-memory instructions an edge (B3: an edge-sweep);
+           those of the int8 instance (B5) and the sum-product ones (B4,
+           per phase: instructions, shared-memory instructions and phi an
+           edge), beside the recorded counts of decode.cu before their
+           redesign (DECODE_PARENT_SASS, not measured in the run);
            and the edge loops of the split pair, B7 (edge_sass.py --split:
            instructions, shared and global loads an edge of split_r's fold
            and split_c's sum, bf16 and f32), beside the recorded counts of
@@ -45,7 +49,9 @@ no result line:
 8. evaluate the evaluate entry point on the card (ldpc_tpu_torch.cli and
            evaluate_code, engine "cuda", staged 12 -> 50, 32,768 words a
            point in one batch): (a) `bench wifi`; (b) the sum-product
-           waterfall with f32 state, FER held against the JAX package's;
+           waterfall with f32 state, FER held against the JAX package's,
+           then once more under torch.profiler (profile_call: busy share,
+           B4's share of the device time);
            (c) normalized and offset min-sum, bf16 state; (d) the other
            (kind, store) pairs once each.
 9. torch   the torch engine: `probe` on near-earth against the kernel with
@@ -270,14 +276,18 @@ MB_ARGS = ["--quick"]
 # min-sum: phase A 8 (old c2v: select, sign; v = t - c2v; |v|; two-min
 # compare, m2 min, m1 min; sign test), phase B 3 (select, sign, add);
 # normalized adds one multiply and offset a subtract and a max wherever a
-# message is rebuilt.  Sum-product: phase A 14 plus 2 phi (the rebuild:
-# sub, 2 clip, mul, neg, sign, mul; v: sub; |v|, 2 clip, mul, neg; S add;
-# sign test), phase B 8 plus 1 phi.  One phi is the float32 operations of
-# the SASS that csrc/decode.cu's phi compiles to (an FFMA 2; what runs for
-# some arguments only left out), counted by ldpc_tpu_torch/scripts/phi_sass.py:
-# phase 2 counts them on the card's toolkit, and the bounds use that count.
+# message is rebuilt.  Sum-product, the least work an edge: phase A 7 plus
+# 1 phi (v = t - c2v, with c2v the message phase B computed from the same
+# stored S, sign and stash; |v|, 2 clip, mul, neg; S add; sign test),
+# phase B 8 plus 1 phi (sub, 2 clip, mul, neg, sign, mul, add).  Phase A
+# does not rebuild the old message (7 operations and a phi): that only
+# recomputes a value the previous phase B computed.  One phi is the
+# float32 operations of the SASS that csrc/decode.cu's phi compiles to (an
+# FFMA 2; what runs for some arguments only left out), counted by
+# ldpc_tpu_torch/scripts/phi_sass.py: phase 2 counts them on the card's
+# toolkit, and the bounds use that count.
 def sum_product_ops(phi_ops: int) -> tuple[int, int]:
-    return (14 + 2 * phi_ops, 8 + phi_ops)
+    return (7 + phi_ops, 8 + phi_ops)
 
 
 OPS = {"min-sum": (8, 3), "normalized-min-sum": (9, 4),
@@ -299,6 +309,15 @@ SPLIT_PARENT_SASS = {"B7 split_r bfloat16": (39.75, 2, 1),
                      "B7 split_r float32": (38.75, 2, 1),
                      "B7 split_c bfloat16": (47, 3, 5),
                      "B7 split_c float32": (40.75, 3, 4)}
+# The fused kernel's int8 (B5) and sum-product (B4) edge loops in decode.cu
+# before their redesign, as recorded once from decode.cu at commit b1d578c
+# (edge_sass.py's analysis of its cuobjdump listing, nvcc 12.9 on an H100
+# machine; PERF.md), not measured in a run.  B5: per phase, instructions,
+# shared-memory instructions and conversions an edge; B4: per phase,
+# instructions, shared-memory instructions and phi an edge.
+DECODE_PARENT_SASS = {"B5 int8": {"A": (23.5, 1.5, 1), "B": (18.0, 1.25, 1)},
+                      "B4 bfloat16": {"A": (129, 5, 2), "B": (90, 8, 1)},
+                      "B4 float32": {"A": (125, 5, 2), "B": (87, 8, 1)}}
 # the port's kernels among the profiler's device events
 OUR_KERNELS = re.compile(r"decode_kernel|split_[rc]<")
 SOURCE = "ldpc_tpu_torch/csrc/decode.cu"
@@ -465,6 +484,21 @@ def phase_build() -> dict:
                                        for c in edge_sass.LAYERED_EDGES)
                    for k, r in res["layered"].items()]))
     reps["edge_sass"] = res
+    log("build", "B5 int8 edge loops, per phase (instructions, shared, "
+        "conversions an edge): " + "; ".join(
+            f"{ph} {res['B5 int8'][ph]['instructions_per_edge']:.4g}, "
+            f"{res['B5 int8'][ph]['shared_per_edge']:.4g}, "
+            f"{res['B5 int8'][ph]['conversions'] / res['B5 int8'][ph]['edges']:.4g}"
+            for ph in "AB") + "; B4 sum-product, per phase (instructions, "
+        "shared, phi an edge; loops): " + "; ".join(
+            f"{k} {ph} {r[ph]['instructions_per_edge']:.4g}, "
+            f"{r[ph]['shared_per_edge']:.4g}, {r[ph]['phi_per_edge']:.4g} "
+            f"({r[ph]['loops']})"
+            for k, r in res["sum_product"].items() for ph in "AB") +
+        "; decode.cu at b1d578c, before the redesign, as recorded (not "
+        "measured in this run): " + "; ".join(
+            f"{k} " + ", ".join(f"{ph} {v}" for ph, v in d.items())
+            for k, d in DECODE_PARENT_SASS.items()))
     log("build", f"B7 edge loops: {edge_sass.split_summary(split_res)}; "
         "split.cu at 6764371, before the redesign, as recorded (not "
         "measured in this run; instructions, shared and global loads an "
@@ -640,6 +674,8 @@ def profile_call(dev, fn, tag: str, label: str) -> dict:
                if OUR_KERNELS.search(name))
     busy = sum(t for _, t in by_name.values())
     res = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "kernel_ms": sum(t for name, (_, t) in by_name.items()
+                            if OUR_KERNELS.search(name)) / 1e3,
            "launches_seen": seen, "launches_counted": counted,
            "measured": bool(by_name) and seen == counted}
     if res["measured"]:
@@ -853,6 +889,21 @@ def phase_evaluate(dev) -> dict:
     if got.get(key("sum-product", "float32"), 0) == 0:
         raise AssertionError("the sum-product sweep ran without the kernel")
     out["sum_product"] = sp_points
+
+    # the waterfall once more under the profiler: the device's busy share
+    # and B4's share of the device time
+    def waterfall():
+        for rate, snrs in by_rate.items():
+            _sweep(dev, wifi_code(1944, rate), snrs, kind="sum-product",
+                   scale_llr=True, store_dtype="float32", seed=WIFI_SEED)
+
+    prof = profile_call(dev, waterfall, "evaluate",
+                        "(b) sum-product waterfall")
+    if prof["busy_ms"] > 0:
+        log("evaluate", f"(b) under the profiler: B4 {prof['kernel_ms']:.3f}"
+            f" ms of {prof['busy_ms']:.3f} ms of device time "
+            f"({100 * prof['kernel_ms'] / prof['busy_ms']:.1f}%)")
+    out["sum_product_profile"] = prof
     # (c) normalized and offset min-sum, bf16 state, rate 5/6 at 3.0 dB
     code = wifi_code(1944, 5 / 6)
     for kind in ("normalized-min-sum", "offset-min-sum"):

@@ -14,6 +14,10 @@ chip_smoke.py drives: 32,768 words at 3.4 dB; min-sum bf16 flooding at 12
 iterations, with the stored sign and with popcount_sign; layered bf16 at 6
 sweeps, with both signs; int8 flooding at 12 iterations; and the
 phase-split pair (``ops/cuda_split.py``) at 12 iterations in bf16 and f32.
+Then the 802.11n rate-5/6 cases of the evaluate path's first stage (32,768
+words, 12 iterations): sum-product with f32 and bf16 state at 2.5 dB on
+true LLRs (2y/sigma^2), and layered int8 at 3.0 dB (the CLI's
+``evaluate --code wifi --schedule layered --store-dtype int8``).
 Then the layered bf16 kernel's cost a sweep apart from convergence: the
 slope (t(40) - t(10)) / 30 of its decode of 0 dB words, where nothing
 converges, at 128 and 32,768 words.  Then each split kernel alone, one
@@ -51,6 +55,16 @@ CASES = (("flooding[min-sum,bfloat16]", {}, 12),
          ("flooding[min-sum,int8]", {"store_dtype": "int8"}, 12),
          ("split[min-sum,bfloat16]", {"store_dtype": "bfloat16"}, 12),
          ("split[min-sum,float32]", {"store_dtype": "float32"}, 12))
+# (name, options, iterations, SNR dB, true LLRs) on 802.11n rate 5/6
+WIFI_CASES = (("flooding[sum-product,float32]",
+               {"kind": "sum-product", "store_dtype": "float32"}, 12, 2.5,
+               True),
+              ("flooding[sum-product,bfloat16]",
+               {"kind": "sum-product", "store_dtype": "bfloat16"}, 12, 2.5,
+               True),
+              ("layered[min-sum,int8]",
+               {"schedule": "layered", "store_dtype": "int8"}, 12, 3.0,
+               False))
 SLOPE_SWEEPS = (10, 40)
 SLOPE_WORDS = (128, 32768)
 SPLIT_ITERS = 12
@@ -89,7 +103,8 @@ def child(root: str) -> dict:
     sys.path.insert(0, root)
     import torch
 
-    from ldpc_tpu_torch.codes import near_earth_code, synthetic_qc_code
+    from ldpc_tpu_torch.codes import (near_earth_code, synthetic_qc_code,
+                                      wifi_code)
     from ldpc_tpu_torch.csrc import build, build_report
     from ldpc_tpu_torch.ops import cuda_split
     from ldpc_tpu_torch.ops.cuda_split import make_split_sweep_decoder
@@ -116,6 +131,16 @@ def child(root: str) -> dict:
         out["cases"][name] = {"ms": time_ms(lambda: dec(llr), dev, REPS),
                               "iterations": iters,
                               "outputs": _digest(dec(llr))}
+    wifi = wifi_code(1944, 5 / 6)
+    for name, opts, iters, snr_db, scale in WIFI_CASES:
+        snr_w = torch.full((BATCH,), snr_db, dtype=torch.float32, device=dev)
+        llr_w = transmit(wifi.n, snr_w, generator=gen, scale_llr=scale)[0]
+        dec = make_static_sweep_decoder(wifi, iters, device=dev, **opts)
+        out["cases"][f"wifi5/6 {name}"] = {
+            "ms": time_ms(lambda: dec(llr_w), dev, REPS),
+            "iterations": iters, "snr_db": snr_db,
+            "outputs": _digest(dec(llr_w))}
+    del llr_w
     out["layered_us_per_sweep"] = {}
     lo, hi = SLOPE_SWEEPS
     for words in SLOPE_WORDS:

@@ -23,7 +23,8 @@
 //   B5  store_dtype int8 (`_st`/`_ld`/`_st_raw`): a value is stored as
 //       clip(rint(x * 8), -127, 127) and loaded as q / 8 (Q4.3; the two-min
 //       start saturates to 127); the argmin is the slot index unscaled;
-//       the LLRs enter through the same quantizer;
+//       the LLRs enter through the same quantizer.  Min-sum computes on
+//       the Q4.3 integers themselves, which is exact (see Domain);
 //   B6  popcount_sign (`_sign_from_bits`): the sign product is the parity
 //       of the xor of the check's sign words, and none is stored.
 // Contract of decode_counts there: per word (bit errors against the all-zero
@@ -35,11 +36,14 @@
 // memory.  The min-sum family does about 11 float32 operations per Tanner
 // edge and iteration under flooding (12 normalized, 13 offset) and about 16
 // under the layered schedule (a syndrome pass, the row update, and two
-// rebuilt messages, a subtract and an add per edge); sum-product about 14
-// plus two tanhf and two logf in phase A and 8 plus one of each in phase B.
-// By those counts every variant is bound by operations; on the card the
-// edge loops are bound by the instructions they issue an edge, shared-memory
-// accesses first (ldpc_tpu_torch/scripts/edge_sass.py counts them).
+// rebuilt messages, a subtract and an add per edge); sum-product at least
+// 7 plus a phi (tanhf, logf) in phase A and 8 plus a phi in phase B.  By
+// those counts every variant is bound by operations; on the card the edge
+// loops are bound by the instructions they issue an edge: in the min-sum
+// family those of the integer unit (compares, selects, logic, shifts,
+// FMNMX; half the issue rate) and shared-memory accesses, so int8 keeps
+// its arithmetic off the quarter-rate conversion unit; in sum-product
+// phi's (ldpc_tpu_torch/scripts/edge_sass.py counts them).
 //
 // Why this layout.  The TPU kernel lays 128 words across the vector lanes
 // and keeps their state in VMEM.  Here one block owns one word and keeps its
@@ -54,15 +58,16 @@
 //                      check i = 0 for variable j = 0 of the slot's block
 //                      column (both less shift records), the wrap threshold
 //                      shift * 16, the slot
-//     check records    one per check: sign word 0, m1, m2, the argmin (a
-//                      slot index), the sign product as a bit (unused with
-//                      popcount_sign); bf16 and f32 16 bytes (word 0 | m1 |
-//                      m2 | argmin, the store's values as float32 bits with
-//                      the sign product in bit 31), int8 8 (word 0 | argmin
-//                      | m2 << 8 | m1 << 24, the sign product in bit 31)
+//     check records    one per check, 16 bytes: sign word 0 | m1 | m2 |
+//                      argmin (a slot index), with the sign product (unused
+//                      with popcount_sign): bf16 and f32 keep the store's
+//                      values as float32 bits, the sign product in bit 31;
+//                      int8 the Q4.3 integers, negated where the sign
+//                      product is -1
 //     layered scratch  from a 16-byte boundary, z records of 16 bytes: the
 //                      new state of the block row being updated, unrounded,
-//                      in the f32 layout of the records
+//                      in the f32 layout of the records (min-sum int8: the
+//                      int8 layout, unclamped)
 //     row table        int2 per (block row, slot): the byte offset of the
 //                      total of check i = 0, and the wrap threshold
 //                      (z - shift) * sizeof(Store)
@@ -73,21 +78,37 @@
 //     scratch words    layered, check degree > 32: z * (ceil(dc/32) - 1)
 //                      uint32, the scratch's sign words past the first
 //     sign words 1..   m * (ceil(dc/32) - 1) uint32 (check degree > 32)
-//   sum-product:       sign words m * ceil(dc/32) uint32 (bit d%32 of word
-//                      d/32); S, the sign product: m Store each; phi stash:
-//                      n_edges * z Store (block edge e, check i at e*z + i)
+//   sum-product, from a 16-byte boundary:
+//     edge table       int4 per block edge e (block row, slot): the byte
+//                      offset of the total of check i = 0's variable, the
+//                      wrap threshold (z - shift) * sizeof(Store), the
+//                      check of i = 0, the slot
+//     column table     int4 per (block column, column slot): the byte
+//                      offset of the plane's entry of variable j = 0 (less
+//                      shift entries), the shift in entry bytes, the check
+//                      of variable j = 0 less the shift
+//     check records    8 bytes: sign word 0 with the sign product folded
+//                      in (bit d: the sign of slot d's message), S (the
+//                      store's value as float32 bits)
+//     sign words 1..   m * (ceil(dc/32) - 1) uint32, likewise (dc > 32)
+//     parity           m uint32: the parity of each check's totals
+//     plane            n_edges * zp float32 (block edge e, check i at
+//                      e*zp + i; zp = z rounded up to even, the entries
+//                      past z padding): phi(|v|) with v's sign, then the
+//                      message
 //   chan, totals       n Store each (variable frame)
 // Bytes per block (dynamic shared memory, tables included):
-//                      near-earth (n 8176, m 1022)   802.11n (n 1944), r1/2
-//   min-sum, bf16      51,952                        32,448
-//   min-sum, f32       84,656                        40,224
-//   min-sum, int8      27,424                        20,784
-//   layered            + 8,696                       - 576
-//   sum-product, bf16  107,648                       33,612
-//   sum-product, f32   209,848                       59,208
-// Near-earth min-sum leaves room for four blocks an SM in bf16 and int8 and
-// two in f32 (layered: three in bf16, two in f32); sum-product with f32
-// state for one (slow, and right).
+//                      near-earth        802.11n (n 1944)
+//                      (n 8176, m 1022)  r1/2      r5/6
+//   min-sum, bf16      51,952            32,448    17,056
+//   min-sum, f32       84,656            40,224    24,832
+//   min-sum, int8      35,600            28,560    13,168
+//   layered            + 8,696           - 576     + 1,696
+//   sum-product, bf16  179,448           57,376    42,296
+//   sum-product, f32   212,152           65,152    50,072
+// Near-earth min-sum leaves room for four blocks an SM in bf16 and six in
+// int8 (registers allow fewer) and two in f32 (layered: three in bf16, two
+// in f32); sum-product for one (slow, and right).
 //
 // The flooding loops of the min-sum family.  Phase A: a thread takes the
 // checks i0 and i0 + h (h = ceil(z/2)) of one block row and folds both
@@ -103,8 +124,24 @@
 // A word leaves the loop as soon as all its checks are satisfied
 // (__syncthreads_or): the TPU kernel's latches freeze a converged word, so
 // per-word exit gives the same outputs as its per-tile exit, and no pad row
-// is needed since z is indexed exactly.  Sum-product keeps a thread per
-// check and per variable, with the host's tables.
+// is needed since z is indexed exactly.
+//
+// Sum-product.  A1: a thread takes the checks i0 and i0 + h of one block
+// edge (the items numbered across block edges, so all 256 threads work
+// where z is small; one edge-table entry for both) and computes v = t - c2v
+// from the total and the message kept from B1, and phi(|v|) into the plane
+// with v's sign; A2: a thread per check sums S over its slots in row-slot
+// order and gathers the sign words, the sign product and the parity of
+// its totals; B1: per edge as A1, c2v = sgn * phi(S - stash) into the
+// plane, the stash being the plane's phi(|v|) rounded to the store where
+// B1 reads it; B2: a thread takes four variables of a block column and sums
+// their messages in the column's order, as min-sum's phase B does, and a
+// negative total flips a parity word of each of its checks (a shared
+// atomic xor, in a branch that a word near convergence seldom takes; the
+// entry totals' flips are made at entry).  2 phi an edge, not the
+// TPU kernel's 3 (its phase A rebuilds the old message from the stored S,
+// sign and stash, which phase B computed the iteration before), every phi
+// on an edge item, and 4 barriers an iteration.
 //
 // The layered hazard.  A block of the base matrix may hold several shifts
 // (near-earth: two in each), so two edges of one row reach the same
@@ -143,8 +180,10 @@
 //     product x edge sign is -1: the product by +-1, exactly;
 //   - flooding phase B sums each variable as tot = -chan, then += in the
 //     plan's column-edge order (ascending block row, then slot), never
-//     reassociated; sum-product's S sums the new phi in row-slot order
-//     (ascending block column); the products sgn * x are by +-1 and exact,
+//     reassociated; sum-product's S sums the new phi, unrounded, in
+//     row-slot order (ascending block column), from +0, so that a phi of
+//     -0 adds as +0 does; its kept message is the f32 value sgn * phi(S -
+//     stash) that phase A rebuilds; the products sgn * x are by +-1 and exact,
 //     so a contraction into an FMA changes nothing; the other products
 //     (alpha) and the layered delta and total use __fmul_rn / __fsub_rn /
 //     __fadd_rn, which are never contracted; do not build with
@@ -165,6 +204,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -275,34 +316,94 @@ struct Rec<__nv_bfloat16> : Rec32 {
   }
 };
 
-// int8: 8 bytes, word 0 | argmin | m2 (Q4.3) << 8 | m1 (Q4.3) << 24, bit 31
-// set where the sign product is -1
+// int8: 16 bytes, word 0 | m1 | m2 | argmin, m1 and m2 as Q4.3 integers
+// (0..127) negated where the sign product is -1 (unsigned with
+// popcount_sign), so that a message of the min-sum kind is the picked
+// integer, negated where the edge's sign bit is set.  The sign product is
+// lost only where m1 = m2 = 0, and there every message is +-0, whose sign
+// changes no total: an int8 store holds no -0.  The layered scratch of the
+// integer domain has this layout too, unclamped.
 template <>
 struct Rec<int8_t> {
-  using V = uint2;
+  using V = uint4;
   static constexpr bool kSigned = false;
-  __device__ static int am(const V& r) {
-    return static_cast<int>(r.y & 0xffu);
+  __device__ static int am(const V& r) { return static_cast<int>(r.w); }
+  // bit 31: the sign product is negative (m2 >= m1 carries it wherever
+  // the messages are not all zero)
+  __device__ static uint32_t negmask(const V& r) { return r.z; }
+  // the signed Q4.3 magnitude of slot d: m2 where d is the argmin, else m1
+  __device__ static int pick(const V& r, int d) {
+    return static_cast<int>(am(r) == d ? r.z : r.y);
   }
-  __device__ static uint32_t negmask(const V& r) { return r.y; }
   __device__ static float m1(const V& r) {
-    return static_cast<float>((r.y >> 24) & 0x7fu) * (1.0f / kQuant);
+    return static_cast<float>(abs(static_cast<int>(r.y))) * (1.0f / kQuant);
   }
   __device__ static float m2(const V& r) {
-    return static_cast<float>((r.y >> 8) & 0xffu) * (1.0f / kQuant);
+    return static_cast<float>(abs(static_cast<int>(r.z))) * (1.0f / kQuant);
   }
   __device__ static float mag(const V& r, int d) {
-    return am(r) == d ? m2(r) : m1(r);
+    return static_cast<float>(abs(pick(r, d))) * (1.0f / kQuant);
   }
+  __device__ static V make(uint32_t w0, int q1, int q2, int am,
+                           uint32_t neg) {
+    const int s = -static_cast<int>(neg);   // 0, or -1 to negate
+    return make_uint4(w0, static_cast<uint32_t>((q1 ^ s) - s),
+                      static_cast<uint32_t>((q2 ^ s) - s),
+                      static_cast<uint32_t>(am));
+  }
+  // from the f32 fold (normalized, offset): n1, n2 >= 0 round to 0..127
   __device__ static V pack(uint32_t w0, float n1, float n2, int am,
                            uint32_t neg) {
-    // n1, n2 >= 0, so their Q4.3 values are 0..127
-    const uint32_t q1 = static_cast<uint8_t>(st<int8_t>(n1));
-    const uint32_t q2 = static_cast<uint8_t>(st<int8_t>(n2));
-    return make_uint2(w0, static_cast<uint32_t>(am) | (q2 << 8) |
-                              (q1 << 24) | (neg << 31));
+    return make(w0, st<int8_t>(n1), st<int8_t>(n2), am, neg);
   }
+  // from the integer fold (min-sum): the two-min start saturates to 127
+  __device__ static V pack_q(uint32_t w0, int n1, int n2, int am,
+                             uint32_t neg) {
+    return make(w0, min(n1, kQMax), min(n2, kQMax), am, neg);
+  }
+  static constexpr int kQMax = 127;
 };
+
+// The arithmetic of a variant: float32, or (min-sum with int8 state) the
+// Q4.3 integers themselves.  Why the integers are exact: a stored total
+// and a stored magnitude are multiples of 1/8 with |x| <= 15.875, so
+// v = t - c2v (|v| <= 31.75), |v|, the two-min fold and phase B's sum
+// (|tot| <= 15.875 * (1 + d_v)) are exact in f32, and equal the same
+// operations on the integers x * 8; rounding to the store, rint(x * 8)
+// clamped to +-127, is then the clamp alone.  The fold's start kBig
+// rounds to 127, and so does the integer fold's start (fold_q), 2^23 - 1,
+// which also saturates the layered delta t + (c2v_new - c2v_old) to the
+// side that kBig takes (it is above 3 * 127).  A sign test agrees too: a
+// total loads as +0 where it is 0, and x - y is -0 only for -0 - (+0), so
+// no f32 value tested below is -0.  Normalized and offset multiply or
+// subtract a non-dyadic alpha or beta: they keep f32 arithmetic.
+template <int K, typename S>
+struct Domain {
+  using T = float;
+  static constexpr bool kQ = false;
+};
+
+template <>
+struct Domain<kMinSum, int8_t> {
+  using T = int;
+  static constexpr bool kQ = true;
+};
+
+// a total of the store, widened into the arithmetic's domain T
+template <typename T, typename S>
+__device__ __forceinline__ T load_total(const unsigned char* p) {
+  if constexpr (std::is_same_v<T, int>) {
+    return *reinterpret_cast<const int8_t*>(p);
+  } else {
+    return ld(*reinterpret_cast<const S*>(p));
+  }
+}
+
+// an integer-domain total rounded into the int8 store: the clamp
+__device__ __forceinline__ int8_t store_q(int x) {
+  return static_cast<int8_t>(min(max(x, -Rec<int8_t>::kQMax),
+                                 Rec<int8_t>::kQMax));
+}
 
 __device__ __forceinline__ float phi(float x) {
   return -logf(tanhf(x * 0.5f));
@@ -350,14 +451,33 @@ __device__ __forceinline__ void flip_if_negative(uint32_t& acc, float x) {
 #endif
 }
 
-__device__ __forceinline__ float bit_sign(uint32_t word, int r) {
-  return 1.f - 2.f * static_cast<float>((word >> r) & 1u);
-}
-
 // x (a magnitude, sign bit clear) negated where bit 31 of s is set: the
 // product by +-1, exactly
 __device__ __forceinline__ float with_sign(float x, uint32_t s) {
   return __uint_as_float(__float_as_uint(x) ^ (s & 0x80000000u));
+}
+
+// an integer x negated where bit 31 of s is set
+__device__ __forceinline__ int with_sign(int x, uint32_t s) {
+  const int m = static_cast<int32_t>(s) >> 31;
+  return (x ^ m) - m;
+}
+
+// acc - x where word & mask is set, else acc + x: a test and two
+// predicated adds in place, where the compiler's own code broadcasts the
+// bit and negates, (x ^ m) - m, in two instructions more
+__device__ __forceinline__ int add_or_sub(int acc, int x, uint32_t word,
+                                          uint32_t mask) {
+#ifdef __CUDA_ARCH__
+  asm("{\n\t.reg .pred p;\n\t.reg .b32 t;\n\t"
+      "and.b32 t, %1, %2;\n\tsetp.ne.u32 p, t, 0;\n\t"
+      "@p sub.s32 %0, %0, %3;\n\t@!p add.s32 %0, %0, %3;\n\t}"
+      : "+r"(acc)
+      : "r"(word), "r"(mask), "r"(x));
+  return acc;
+#else
+  return (word & mask) ? acc - x : acc + x;
+#endif
 }
 
 __host__ __device__ __forceinline__ int table_ints(int mb_n, int nb_n, int dc,
@@ -367,6 +487,13 @@ __host__ __device__ __forceinline__ int table_ints(int mb_n, int nb_n, int dc,
 
 __host__ __device__ __forceinline__ int sign_words(int dc) {
   return (dc + 31) / 32;
+}
+
+// sum-product: a block edge's entries in the plane, z rounded up to a
+// multiple of kChecks, so that every check i0 + q*h of an edge item has an
+// entry and the item writes it unconditionally (those past z are padding)
+__host__ __device__ __forceinline__ int plane_stride(int z) {
+  return kChecks * ((z + kChecks - 1) / kChecks);
 }
 
 struct Args {
@@ -384,24 +511,28 @@ struct Args {
 template <int K, typename S, bool kLayered>
 struct Layout {
   long long ctab = 0, rec = 0, row = 0, rtab = 0, lblk = 0, lnb = 0,
-            rx = 0, xbits = 0, bits = 0, sp_m1 = 0, sp_m2 = 0, stash = 0,
-            chan = 0, tot = 0, total = 0;
+            rx = 0, xbits = 0, etab = 0, par = 0, plane = 0, chan = 0,
+            tot = 0, total = 0;
   __host__ __device__ explicit Layout(const Args& a) {
     const long long sz = sizeof(S);
     const long long sw = sign_words(a.dc);
     const long long edges = 1LL * a.mb_n * a.dc;   // (block row, slot)
     long long o = 4LL * table_ints(a.mb_n, a.nb_n, a.dc, a.dv);
+    o = (o + 15) / 16 * 16;
     if (K == kSumProduct) {
-      bits = o;
-      o += 4LL * a.m * sw;
-      sp_m1 = o;
-      o += sz * a.m;
-      sp_m2 = o;
-      o += sz * a.m;
-      stash = o;
-      o += sz * a.n_edges * a.z;
+      etab = o;
+      o += 16LL * a.n_edges;
+      ctab = o;
+      o += 16LL * a.nb_n * a.dv;
+      rec = o;
+      o += 8LL * a.m;
+      xbits = o;
+      o += 4LL * a.m * (sw - 1);
+      par = o;
+      o += 4LL * a.m;
+      plane = o;
+      o += 4LL * a.n_edges * plane_stride(a.z);
     } else {
-      o = (o + 15) / 16 * 16;
       ctab = o;   // the column table, or the layered (block row, slot) one
       o += 16LL * (kLayered ? edges : 1LL * a.nb_n * a.dv);
       rec = o;
@@ -436,20 +567,17 @@ struct Layout {
 template <typename S>
 struct Smem {
   unsigned char* base;
-  // the edge tables as the host lays them out
+  // of the edge tables as the host lays them out, the degrees and each
+  // block row's first block edge
   const int* row_deg;
   const int* row_base;
-  const int* row_nb;
-  const int* row_shift;
   const int* col_deg;
-  const int* col_mb;
-  const int* col_d;
-  const int* col_shift;
   // min-sum family: per (block row, slot) the byte offset of the total of
   // check i = 0 and the wrap threshold (z - shift) * sizeof(S), against
   // which i * sizeof(S) is compared; per (block column, column slot) the
   // byte offset of the record of variable j = 0, the shift in record bytes
-  // and the row slot
+  // and the row slot (sum-product: of the plane's entry of check j = 0,
+  // the shift in entry bytes)
   const int2* rtab;
   const int4* ctab;
   typename Rec<S>::V* rec;
@@ -462,22 +590,29 @@ struct Smem {
   const int4* ltab;
   const int2* lblk;
   const int* lnb;
-  // layered: the new state of the row being updated (f32, unrounded, the
-  // records' f32 layout) and its sign words past the first
+  // layered: the new state of the row being updated (unrounded, the
+  // layout of the records: f32 bits, or the integer domain's integers)
+  // and its sign words past the first
   uint4* row;
   uint32_t* rx;
-  // sum-product: sign words, S, the sign product, the phi stash
-  uint32_t* bits;
-  S* m1;
-  S* m2;
-  S* stash;
+  // sum-product: per block edge e the byte offset of the total of check
+  // i = 0's variable, the wrap threshold (z - shift) * sizeof(S), the
+  // check of i = 0 (block row * z) and the slot; per check the record
+  // (sign word 0 with the sign product folded in, S as f32 bits) and the
+  // parity of its totals; per (block edge, check) the plane
+  const int4* etab;
+  uint2* sprec;
+  uint32_t* par;
+  float* plane;
   S* chan;
   S* tot;
 };
 
-// The new compressed state of one check (f32, unrounded).
+// The new compressed state of one check, unrounded: f32, or integers in
+// the integer domain.
+template <typename T>
 struct Folded {
-  float n1, n2;
+  T n1, n2;
   int am;
   uint32_t w0;    // sign word 0
   uint32_t neg;   // the new sign product is negative (parity of the words)
@@ -491,10 +626,10 @@ struct Folded {
 // > 32) are read from the checks' own words and written to xout[q] word by
 // word: an old word is read before its new one is written.
 template <int K, typename S, bool kWide, bool kPop, int kC>
-__device__ __forceinline__ void fold(const Smem<S>& p, const Args& a, int mb,
-                                     const int (&i)[kC],
-                                     uint32_t* const (&xout)[kC],
-                                     Folded (&f)[kC]) {
+__device__ __forceinline__ void fold_f(const Smem<S>& p, const Args& a,
+                                       int mb, const int (&i)[kC],
+                                       uint32_t* const (&xout)[kC],
+                                       Folded<float> (&f)[kC]) {
   using R = Rec<S>;
   constexpr int sz = sizeof(S);
   const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
@@ -576,29 +711,173 @@ __device__ __forceinline__ void fold(const Smem<S>& p, const Args& a, int mb,
   for (int q = 0; q < kC; ++q) f[q].neg = parity(px[q]);
 }
 
+// (word << 1) | the sign bit of v: a funnel shift
+__device__ __forceinline__ uint32_t shift_in_sign(uint32_t word, int v) {
+  return __funnelshift_l(static_cast<uint32_t>(v), word, 1);
+}
+
+// The same fold in the integer domain (min-sum, int8 state), in fewer
+// instructions of the integer unit, which the min-sum loops keep busiest:
+// the old m1 and m2 carry the sign product (unsigned with popcount_sign),
+// so v = t - (old message) is a predicated add or subtract of the picked
+// integer; the minima of the keys |v| << 8 | d give the two minima with
+// multiplicity and the argmin, the first of equals as a strict < gives it;
+// the parity of the totals is bit 31 of their xor; and the sign bits are
+// shifted in slot by slot and reversed at the end of each sign word.  The
+// keys start at 2^31 - 1: an empty fold's minima are 2^23 - 1.
+template <bool kWide, bool kPop, int kC>
+__device__ __forceinline__ void fold_q(const Smem<int8_t>& p, const Args& a,
+                                       int mb, const int (&i)[kC],
+                                       uint32_t* const (&xout)[kC],
+                                       Folded<int> (&f)[kC]) {
+  using R = Rec<int8_t>;
+  const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
+  const int z = a.z;
+  int o1[kC], o2[kC], oam[kC], k1[kC], k2[kC];
+  uint32_t flip[kC], ow[kC], px[kC], tx[kC];
+  const uint32_t* xin[kC];
+#pragma unroll
+  for (int q = 0; q < kC; ++q) {
+    const int c = mb * z + i[q];
+    const typename R::V r = p.rec[c];
+    xin[q] = p.xbits + c * n_x;
+    // negated: v = t + o where the old message's sign bit is set, else
+    // t - o, is t - (the old message) for o = -m
+    o1[q] = -static_cast<int>(r.y);
+    o2[q] = -static_cast<int>(r.z);
+    oam[q] = R::am(r);
+    flip[q] = 0u;
+    if (kPop) {
+      uint32_t x = r.x;
+      for (int k = 0; k < n_x; ++k) x ^= xin[q][k];
+      flip[q] = 0u - parity(x);
+    }
+    ow[q] = r.x ^ flip[q];
+    px[q] = 0u;
+    tx[q] = 0u;
+    k1[q] = 0x7fffffff;
+    k2[q] = 0x7fffffff;
+    f[q].w0 = 0u;
+  }
+  const int deg = p.row_deg[mb];
+  const int2* rt = p.rtab + mb * a.dc;
+  const int passes = kWide ? (deg + 31) >> 5 : 1;
+  for (int w = 0; w < passes; ++w) {
+    const int d0 = 32 * w;
+    if (kWide && w > 0) {
+#pragma unroll
+      for (int q = 0; q < kC; ++q) ow[q] = xin[q][w - 1] ^ flip[q];
+    }
+    uint32_t nbits[kC];
+#pragma unroll
+    for (int q = 0; q < kC; ++q) nbits[q] = 0u;
+    const int dend = kWide ? min(deg, d0 + 32) : deg;
+    for (int d = d0; d < dend; ++d) {
+      const int2 t = rt[d];
+      const uint32_t bit = 1u << (d - d0);
+#pragma unroll
+      for (int q = 0; q < kC; ++q) {
+        const int off = i[q] >= t.y ? t.x + i[q] - z : t.x + i[q];
+        const int tv = *reinterpret_cast<const int8_t*>(p.base + off);
+        tx[q] ^= static_cast<uint32_t>(tv);
+        const int v =
+            add_or_sub(tv, oam[q] == d ? o2[q] : o1[q], ow[q], bit);
+        const int key = (abs(v) << 8) | d;
+        k2[q] = min(k2[q], max(k1[q], key));
+        k1[q] = min(k1[q], key);
+        nbits[q] = shift_in_sign(nbits[q], v);
+      }
+    }
+    const int n = dend - d0;
+#pragma unroll
+    for (int q = 0; q < kC; ++q) {
+      // slot d0 + k at bit k
+      const uint32_t word = n > 0 ? __brev(nbits[q]) >> (32 - n) : 0u;
+      px[q] ^= word;
+      if (!kWide || w == 0) {
+        f[q].w0 = word;
+      } else {
+        xout[q][w - 1] = word;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kC; ++q) {
+    f[q].n1 = k1[q] >> 8;
+    f[q].n2 = k2[q] >> 8;
+    f[q].am = k1[q] & 0xff;
+    f[q].neg = parity(px[q]);
+    f[q].par = tx[q] >> 31;
+  }
+}
+
+template <int K, typename S, bool kWide, bool kPop, int kC>
+__device__ __forceinline__ void fold(
+    const Smem<S>& p, const Args& a, int mb, const int (&i)[kC],
+    uint32_t* const (&xout)[kC], Folded<typename Domain<K, S>::T> (&f)[kC]) {
+  if constexpr (Domain<K, S>::kQ) {
+    fold_q<kWide, kPop, kC>(p, a, mb, i, xout, f);
+  } else {
+    fold_f<K, S, kWide, kPop, kC>(p, a, mb, i, xout, f);
+  }
+}
+
+// The check record of a fold (flooding phase A): rounded into the store.
+template <int K, typename S, bool kPop>
+__device__ __forceinline__ typename Rec<S>::V pack(
+    const Folded<typename Domain<K, S>::T>& f) {
+  if constexpr (Domain<K, S>::kQ) {
+    return Rec<S>::pack_q(f.w0, f.n1, f.n2, f.am, kPop ? 0u : f.neg);
+  } else {
+    return Rec<S>::pack(f.w0, f.n1, f.n2, f.am, kPop ? 0u : f.neg);
+  }
+}
+
 // The c2v message of slot d from its check's record r (`_recon`); xw: the
 // check's sign words past the first (check degree > 32).
 template <int K, typename S, bool kWide, bool kPop>
-__device__ __forceinline__ float message(const typename Rec<S>::V& r,
-                                         const uint32_t* xw, int n_x, int d,
-                                         float alpha, float beta) {
+__device__ __forceinline__ typename Domain<K, S>::T message(
+    const typename Rec<S>::V& r, const uint32_t* xw, int n_x, int d,
+    float alpha, float beta) {
   using R = Rec<S>;
   const uint32_t word = (kWide && d >= 32) ? xw[(d >> 5) - 1] : r.x;
   const uint32_t wsh = word << (31 - (d & 31));   // bit 31: the edge sign
-  if constexpr (R::kSigned && !kPop && K == kMinSum) {
+  uint32_t neg = 0u;   // bit 31: the sign product is negative
+  if (kPop) {
+    uint32_t x = r.x;
+    if (kWide) {
+      for (int k = 0; k < n_x; ++k) x ^= xw[k];
+    }
+    neg = parity(x) << 31;
+  }
+  if constexpr (Domain<K, S>::kQ) {
+    return with_sign(R::pick(r, d), wsh ^ neg);
+  } else if constexpr (R::kSigned && !kPop && K == kMinSum) {
     return __uint_as_float(R::pick(r, d) ^ (wsh & 0x80000000u));
   } else {
-    uint32_t neg;   // bit 31: the sign product is negative
+    if (!kPop) neg = R::negmask(r);
+    return with_sign(adjust<K>(R::mag(r, d), alpha, beta), wsh ^ neg);
+  }
+}
+
+// acc + the c2v message of slot d (message); in the integer domain a
+// predicated add or subtract of the picked integer
+template <int K, typename S, bool kWide, bool kPop>
+__device__ __forceinline__ typename Domain<K, S>::T add_message(
+    typename Domain<K, S>::T acc, const typename Rec<S>::V& r,
+    const uint32_t* xw, int n_x, int d, float alpha, float beta) {
+  if constexpr (Domain<K, S>::kQ) {
+    uint32_t word = (kWide && d >= 32) ? xw[(d >> 5) - 1] : r.x;
     if (kPop) {
       uint32_t x = r.x;
       if (kWide) {
         for (int k = 0; k < n_x; ++k) x ^= xw[k];
       }
-      neg = parity(x) << 31;
-    } else {
-      neg = R::negmask(r);
+      word ^= 0u - parity(x);
     }
-    return with_sign(adjust<K>(R::mag(r, d), alpha, beta), wsh ^ neg);
+    return add_or_sub(acc, Rec<S>::pick(r, d), word, 1u << (d & 31));
+  } else {
+    return acc + message<K, S, kWide, kPop>(r, xw, n_x, d, alpha, beta);
   }
 }
 
@@ -611,6 +890,7 @@ template <int K, typename S, bool kWide, bool kPop, int kC>
 __device__ __forceinline__ int layered_rows(const Smem<S>& p, const Args& a,
                                             int prev, int mb) {
   using R = Rec<S>;
+  constexpr bool kQ = Domain<K, S>::kQ;
   const int z = a.z;
   const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
   const int h = (z + kC - 1) / kC;
@@ -629,19 +909,31 @@ __device__ __forceinline__ int layered_rows(const Smem<S>& p, const Args& a,
       for (int q = 0; q < kC; ++q) {
         const uint4 r = p.row[i[q]];
         const int c = prev * z + i[q];
-        p.rec[c] = R::pack(r.x, Rec32::m1(r), Rec32::m2(r), Rec32::am(r),
-                           kPop ? 0u : r.y >> 31);
+        if constexpr (kQ) {
+          // m2 >= m1 carries the sign product wherever it matters
+          p.rec[c] = R::pack_q(r.x, abs(static_cast<int>(r.y)),
+                               abs(static_cast<int>(r.z)),
+                               static_cast<int>(r.w), kPop ? 0u : r.z >> 31);
+        } else {
+          p.rec[c] = R::pack(r.x, Rec32::m1(r), Rec32::m2(r), Rec32::am(r),
+                             kPop ? 0u : r.y >> 31);
+        }
         for (int w = 0; w < n_x; ++w) p.xbits[c * n_x + w] = xo[q][w];
       }
     }
-    Folded f[kC];
+    Folded<typename Domain<K, S>::T> f[kC];
     fold<K, S, kWide, kPop, kC>(p, a, mb, i, xo, f);
 #pragma unroll
     for (int q = 0; q < kC; ++q) {
       bad |= f[q].par;
       if (i0 + q * h < z) {
-        p.row[i[q]] = Rec32::make(f[q].w0, f[q].n1, f[q].n2, f[q].am,
-                                  f[q].neg);
+        if constexpr (kQ) {
+          p.row[i[q]] = R::make(f[q].w0, f[q].n1, f[q].n2, f[q].am,
+                                f[q].neg);
+        } else {
+          p.row[i[q]] = Rec32::make(f[q].w0, f[q].n1, f[q].n2, f[q].am,
+                                    f[q].neg);
+        }
       }
     }
   }
@@ -703,6 +995,10 @@ template <int K, typename S, bool kWide, bool kPop>
 __device__ __forceinline__ void layered_deltas(const Smem<S>& p,
                                                const Args& a, int mb) {
   using V = typename Rec<S>::V;
+  using T = typename Domain<K, S>::T;
+  constexpr bool kQ = Domain<K, S>::kQ;
+  // the scratch's layout: the records' f32 one, or the integer domain's
+  using Scratch = std::conditional_t<kQ, int8_t, float>;
   constexpr int sz = sizeof(S);
   constexpr int rb = sizeof(V);
   const int z = a.z;
@@ -718,12 +1014,12 @@ __device__ __forceinline__ void layered_deltas(const Smem<S>& p,
   while (b < n_blk) {
     const int2 blk = bt[b];
     int j[kVars];
-    float t[kVars];
+    T t[kVars];
 #pragma unroll
     for (int q = 0; q < kVars; ++q) {
       const int jq = j0 + q * h;
       j[q] = jq < z ? jq : j0;   // past z: j0 again, not written
-      t[q] = ld(*reinterpret_cast<const S*>(p.base + blk.x + j[q] * sz));
+      t[q] = load_total<T, S>(p.base + blk.x + j[q] * sz);
     }
     const int4* end = lt + (blk.y >> 16);
     for (const int4* e = lt + (blk.y & 0xffff); e < end; ++e) {
@@ -742,17 +1038,26 @@ __device__ __forceinline__ void layered_deltas(const Smem<S>& p,
           xo = p.xbits + (mb * z + i) * n_x;
           xn = p.rx + i * n_x;
         }
-        const float co = message<K, S, kWide, kPop>(ro, xo, n_x, te.w,
-                                                     a.alpha, a.beta);
-        const float cn = message<K, float, kWide, false>(rn, xn, n_x, te.w,
-                                                         a.alpha, a.beta);
-        t[q] = ld(st<S>(__fadd_rn(t[q], __fsub_rn(cn, co))));
+        const T co = message<K, S, kWide, kPop>(ro, xo, n_x, te.w, a.alpha,
+                                                 a.beta);
+        const T cn = message<K, Scratch, kWide, false>(rn, xn, n_x, te.w,
+                                                        a.alpha, a.beta);
+        if constexpr (kQ) {
+          t[q] = store_q(t[q] + (cn - co));
+        } else {
+          t[q] = ld(st<S>(__fadd_rn(t[q], __fsub_rn(cn, co))));
+        }
       }
     }
 #pragma unroll
     for (int q = 0; q < kVars; ++q) {
       if (j0 + q * h < z) {
-        *reinterpret_cast<S*>(p.base + blk.x + j[q] * sz) = st<S>(t[q]);
+        S* tot = reinterpret_cast<S*>(p.base + blk.x + j[q] * sz);
+        if constexpr (kQ) {
+          *tot = static_cast<S>(t[q]);
+        } else {
+          *tot = st<S>(t[q]);
+        }
       }
     }
     j0 += kThreads;
@@ -795,45 +1100,206 @@ __device__ __forceinline__ void layered_decode(const Smem<S>& p,
   }
 }
 
-// Sum-product phase A for check c (`_row_pass_sp`); returns its parity.
-template <typename S, bool kWide>
-__device__ __forceinline__ int row_pass_sp(const Smem<S>& p, const Args& a,
-                                           int c, int n_sw) {
-  const int mb = c / a.z;
-  const int i = c - mb * a.z;
-  const float o1 = ld(p.m1[c]);                // S
-  const float osp = ld(p.m2[c]);               // the sign product
-  uint32_t* cbits = p.bits + c * n_sw;
-  float n1 = 0.f, nsp = 1.f;
-  int par = 0;
-  const int deg = p.row_deg[mb];
-  const int* rnb = p.row_nb + mb * a.dc;
-  const int* rsh = p.row_shift + mb * a.dc;
-  S* stash = p.stash + p.row_base[mb] * a.z + i;
-  for (int d0 = 0; d0 < deg; d0 += 32) {
-    const uint32_t ob = cbits[d0 >> 5];
-    uint32_t nbits = 0u;
-    const int dend = kWide ? min(deg, d0 + 32) : deg;
-    for (int d = d0; d < dend; ++d) {
-      const int r = d - d0;
-      int j = i + rsh[d];
-      if (j >= a.z) j -= a.z;
-      const float t = ld(p.tot[rnb[d] * a.z + j]);
-      par ^= t < 0.f;
-      const float sgn = osp * bit_sign(ob, r);
-      const float v = t - sgn * phi(clip_phi(o1 - ld(stash[d * a.z])));
-      const float ph = phi(clip_phi(fabsf(v)));
-      stash[d * a.z] = st<S>(ph);
-      n1 = n1 + ph;
-      const bool neg = v < 0.f;
-      nbits |= static_cast<uint32_t>(neg) << r;
-      nsp = neg ? -nsp : nsp;
+// ---- sum-product (B4).  The plane holds one f32 per (block edge e, check
+// i), at e*zp + i: from A1 to B1 phi(|v|) unrounded, with the sign of v in
+// bit 31; from B1 to the next A1 the message c2v, unrounded.  So a message
+// is computed once, in B1, and A1 takes it back for v = t - c2v, where the
+// TPU kernel rebuilds it from the same stored S, sign and stash: 2 phi an
+// edge, not 3.  The stash (phi(|v|) rounded to the store) is the plane's
+// value rounded where B1 reads it. ----
+
+// A thread of A1 and B1 takes the checks i0 + q*h (q < kChecks, h =
+// ceil(z/kChecks)) of one block edge, the (block edge, i0) items numbered
+// across block edges, so that every thread has work where z is small; the
+// block edge's table entry is loaded once for them.
+struct EdgeItems {
+  int h, e, i0, de, di;
+  __device__ explicit EdgeItems(int z)
+      : h((z + kChecks - 1) / kChecks),
+        e(static_cast<int>(threadIdx.x) / h),
+        i0(static_cast<int>(threadIdx.x) - e * h),
+        de(kThreads / h),
+        di(kThreads - de * h) {}
+  __device__ void next() {
+    e += de;
+    i0 += di;
+    if (i0 >= h) {
+      i0 -= h;
+      ++e;
     }
-    cbits[d0 >> 5] = nbits;
   }
-  p.m1[c] = st<S>(n1);
-  p.m2[c] = st<S>(nsp);
-  return par;
+};
+
+// A1: per edge, v = t - c2v from the total and the kept message, and
+// phi(|v|) with v's sign into the plane.  Both edges' loads come first:
+// a load after a store to the plane would wait for it (the compiler cannot
+// tell the plane from the totals), and the two phi would run one after
+// the other.
+template <typename S>
+__device__ __forceinline__ void sp_edges_a(const Smem<S>& p, const Args& a) {
+  constexpr int sz = sizeof(S);
+  const int z = a.z;
+  const int zb = z * sz;
+  const int zp = plane_stride(z);
+  for (EdgeItems it(z); it.e < a.n_edges; it.next()) {
+    const int4 te = p.etab[it.e];
+    float* pl = p.plane + it.e * zp;
+    float v[kChecks];
+#pragma unroll
+    for (int q = 0; q < kChecks; ++q) {
+      // past z (padding): the total of check i - z
+      const int ib = (it.i0 + q * it.h) * sz;
+      const int off = ib >= te.y ? te.x + ib - zb : te.x + ib;
+      v[q] = ld(*reinterpret_cast<const S*>(p.base + off)) -
+             pl[it.i0 + q * it.h];
+    }
+#pragma unroll
+    for (int q = 0; q < kChecks; ++q) {
+      const float ph = phi(clip_phi(fabsf(v[q])));
+      pl[it.i0 + q * it.h] =
+          __uint_as_float((__float_as_uint(ph) & 0x7fffffffu) |
+                          (v[q] < 0.f ? 0x80000000u : 0u));
+    }
+  }
+}
+
+// A2: per check, S = the sum of its phi(|v|) in row-slot order, the sign
+// words and the sign product (folded into the words: bit d is then the
+// sign of slot d's message), and the parity of its totals (flipped by B2,
+// or at entry, for each negative total), which it clears.  Returns the OR
+// of the parities.
+template <typename S, bool kWide>
+__device__ __forceinline__ int sp_checks(const Smem<S>& p, const Args& a) {
+  const int z = a.z;
+  const int zp = plane_stride(z);
+  const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
+  int bad = 0;
+  for (int c = threadIdx.x; c < a.m; c += kThreads) {
+    const int mb = c / z;
+    const float* pl = p.plane + p.row_base[mb] * zp + (c - mb * z);
+    const int deg = p.row_deg[mb];
+    uint32_t* xw = p.xbits + c * n_x;
+    float s = 0.f;
+    uint32_t w0 = 0u, px = 0u;
+    for (int d0 = 0; d0 < deg; d0 += 32) {
+      const int dend = kWide ? min(deg, d0 + 32) : deg;
+      uint32_t nbits = 0u;
+      for (int d = d0; d < dend; ++d) {
+        const uint32_t u = __float_as_uint(pl[d * zp]);
+        s = s + __uint_as_float(u & 0x7fffffffu);
+        nbits |= (u >> 31) << (d - d0);
+      }
+      px ^= nbits;
+      if (d0 == 0) {
+        w0 = nbits;
+      } else {
+        xw[(d0 >> 5) - 1] = nbits;
+      }
+    }
+    const uint32_t flip = 0u - parity(px);
+    for (int k = 0; k < n_x; ++k) xw[k] ^= flip;
+    p.sprec[c] = make_uint2(w0 ^ flip, __float_as_uint(ld(st<S>(s))));
+    bad |= p.par[c];
+    p.par[c] = 0u;
+  }
+  return bad;
+}
+
+// B1: per edge, c2v = sgn * phi(S - stash) into the plane; loads first,
+// as in A1.
+template <typename S, bool kWide>
+__device__ __forceinline__ void sp_edges_b(const Smem<S>& p, const Args& a) {
+  const int z = a.z;
+  const int zp = plane_stride(z);
+  const int n_x = kWide ? sign_words(a.dc) - 1 : 0;
+  for (EdgeItems it(z); it.e < a.n_edges; it.next()) {
+    const int4 te = p.etab[it.e];
+    const int d = te.w;
+    float* pl = p.plane + it.e * zp;
+    float rest[kChecks];
+    uint32_t sgn[kChecks];
+#pragma unroll
+    for (int q = 0; q < kChecks; ++q) {
+      // past z: padding, from any record
+      const int c = te.z + it.i0 + q * it.h;
+      const uint2 r = p.sprec[c];
+      const uint32_t word =
+          (kWide && d >= 32) ? p.xbits[c * n_x + (d >> 5) - 1] : r.x;
+      sgn[q] = word << (31 - (d & 31));
+      rest[q] = __uint_as_float(r.y) -
+                ld(st<S>(fabsf(pl[it.i0 + q * it.h])));
+    }
+#pragma unroll
+    for (int q = 0; q < kChecks; ++q) {
+      pl[it.i0 + q * it.h] = with_sign(phi(clip_phi(rest[q])), sgn[q]);
+    }
+  }
+}
+
+// Flip the parity of every check of variable j of block column nb (its
+// total is negative): the column table's third entry is the check of
+// variable 0, less the shift.
+template <typename S>
+__device__ __forceinline__ void sp_flip_checks(const Smem<S>& p,
+                                               const Args& a, int nb, int j) {
+  const int4* ct = p.ctab + nb * a.dv;
+  const int deg = p.col_deg[nb];
+  for (int k = 0; k < deg; ++k) {
+    const int4 e = ct[k];
+    atomicXor(p.par + e.z + j + (j * 4 < e.y ? a.z : 0), 1u);
+  }
+}
+
+// B2: per variable, tot = -chan + its messages in the plan's column order;
+// a thread takes the variables j0 + q*h (q < kVars, h = ceil(z/kVars)) of
+// one block column, a slot's table entry loaded once for them.  A negative
+// total flips its checks' parities for the next A2 (rare once a word
+// nears convergence, so a branch and shared atomics).
+template <typename S>
+__device__ __forceinline__ void sp_sums(const Smem<S>& p, const Args& a) {
+  const int z = a.z;
+  const int zr = z * 4;
+  const int h = (z + kVars - 1) / kVars;
+  const int dn = kThreads / h;
+  const int dj = kThreads - dn * h;
+  int nb = threadIdx.x / h;
+  int j0 = threadIdx.x - nb * h;
+  while (nb < a.nb_n) {
+    int v[kVars], jr[kVars];
+    float acc[kVars];
+#pragma unroll
+    for (int q = 0; q < kVars; ++q) {
+      const int jq = j0 + q * h;
+      const int j = jq < z ? jq : j0;   // past z: j0 again, not written
+      v[q] = nb * z + j;
+      jr[q] = j * 4;
+      acc[q] = -ld(p.chan[v[q]]);
+    }
+    const int deg = p.col_deg[nb];
+    const int4* ct = p.ctab + nb * a.dv;
+    for (int k = 0; k < deg; ++k) {
+      const int4 e = ct[k];
+#pragma unroll
+      for (int q = 0; q < kVars; ++q) {
+        const int off = jr[q] < e.y ? e.x + jr[q] + zr : e.x + jr[q];
+        acc[q] = acc[q] + *reinterpret_cast<const float*>(p.base + off);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kVars; ++q) {
+      if (j0 + q * h < z) {
+        const S t = st<S>(acc[q]);
+        p.tot[v[q]] = t;
+        if (ld(t) < 0.f) sp_flip_checks(p, a, nb, j0 + q * h);
+      }
+    }
+    nb += dn;
+    j0 += dj;
+    if (j0 >= h) {
+      j0 -= h;
+      ++nb;
+    }
+  }
 }
 
 // kWide: check degree above 32, ceil(dc/32) sign words per check; without
@@ -858,12 +1324,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   p.base = smem;
   p.row_deg = tab;
   p.row_base = p.row_deg + a.mb_n;
-  p.row_nb = p.row_base + a.mb_n;
-  p.row_shift = p.row_nb + a.mb_n * a.dc;
-  p.col_deg = p.row_shift + a.mb_n * a.dc;
-  p.col_mb = p.col_deg + a.nb_n;
-  p.col_d = p.col_mb + a.nb_n * a.dv;
-  p.col_shift = p.col_d + a.nb_n * a.dv;
+  p.col_deg = p.row_base + a.mb_n * (1 + 2 * a.dc);
   p.rtab = reinterpret_cast<const int2*>(smem + lay.rtab);
   p.ctab = reinterpret_cast<const int4*>(smem + lay.ctab);
   p.rec = reinterpret_cast<V*>(smem + lay.rec);
@@ -873,28 +1334,48 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   p.lnb = reinterpret_cast<const int*>(smem + lay.lnb);
   p.row = reinterpret_cast<uint4*>(smem + lay.row);
   p.rx = reinterpret_cast<uint32_t*>(smem + lay.rx);
-  p.bits = reinterpret_cast<uint32_t*>(smem + lay.bits);
-  p.m1 = reinterpret_cast<S*>(smem + lay.sp_m1);
-  p.m2 = reinterpret_cast<S*>(smem + lay.sp_m2);
-  p.stash = reinterpret_cast<S*>(smem + lay.stash);
+  p.etab = reinterpret_cast<const int4*>(smem + lay.etab);
+  p.sprec = reinterpret_cast<uint2*>(smem + lay.rec);
+  p.par = reinterpret_cast<uint32_t*>(smem + lay.par);
+  p.plane = reinterpret_cast<float*>(smem + lay.plane);
   p.chan = reinterpret_cast<S*>(smem + lay.chan);
   p.tot = reinterpret_cast<S*>(smem + lay.tot);
 
   const int tid = threadIdx.x;
   const int word = blockIdx.x;
   for (int k = tid; k < n_tab; k += kThreads) tab[k] = a.tables[k];
-  if (!kSp) {
-    // the packed tables, from the host's: row_nb | row_shift at 2*mb_n,
-    // col_mb | col_d | col_shift after col_deg
-    const int* g_nb = a.tables + 2 * a.mb_n;
-    const int* g_rsh = g_nb + a.mb_n * a.dc;
-    const int* g_cmb = g_rsh + a.mb_n * a.dc + a.nb_n;
-    const int* g_cd = g_cmb + a.nb_n * a.dv;
-    const int* g_csh = g_cd + a.nb_n * a.dv;
-    constexpr int sz = sizeof(S);
+  // the packed tables, from the host's: row_deg | row_base at 0,
+  // row_nb | row_shift at 2*mb_n, col_mb | col_d | col_shift after col_deg
+  const int* g_nb = a.tables + 2 * a.mb_n;
+  const int* g_rsh = g_nb + a.mb_n * a.dc;
+  const int* g_cmb = g_rsh + a.mb_n * a.dc + a.nb_n;
+  const int* g_cd = g_cmb + a.nb_n * a.dv;
+  const int* g_csh = g_cd + a.nb_n * a.dv;
+  constexpr int sz = sizeof(S);
+  int4* ctab = reinterpret_cast<int4*>(smem + lay.ctab);
+  if (kSp) {
+    // per block edge and per (block column, column slot): see Smem
+    int4* etab = reinterpret_cast<int4*>(smem + lay.etab);
+    for (int k = tid; k < a.mb_n * a.dc; k += kThreads) {
+      const int mb = k / a.dc;
+      const int d = k - mb * a.dc;
+      const int s = g_rsh[k];
+      if (d < a.tables[mb]) {
+        etab[a.tables[a.mb_n + mb] + d] = make_int4(
+            static_cast<int>(lay.tot) + (g_nb[k] * z + s) * sz,
+            (z - s) * sz, mb * z, d);
+      }
+    }
+    for (int k = tid; k < a.nb_n * a.dv; k += kThreads) {
+      const int s = g_csh[k];
+      const int e = a.tables[a.mb_n + g_cmb[k]] + g_cd[k];
+      ctab[k] = make_int4(
+          static_cast<int>(lay.plane) + (e * plane_stride(z) - s) * 4, s * 4,
+          g_cmb[k] * z - s, 0);
+    }
+  } else {
     constexpr int rb = sizeof(V);
     int2* rtab = reinterpret_cast<int2*>(smem + lay.rtab);
-    int4* ctab = reinterpret_cast<int4*>(smem + lay.ctab);
     for (int k = tid; k < a.mb_n * a.dc; k += kThreads) {
       const int s = g_rsh[k];
       rtab[k] = make_int2(static_cast<int>(lay.tot) + (g_nb[k] * z + s) * sz,
@@ -945,13 +1426,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
     p.tot[v] = st<S>(-ld(c));   // decoders negate on entry
   }
   if (kSp) {
-    for (int k = tid; k < m * n_sw; k += kThreads) p.bits[k] = 0u;
-    for (int c = tid; c < m; c += kThreads) {
-      p.m1[c] = st<S>(kPhiMax);   // S = 38 with a 0 stash rebuilds c2v == 0
-      p.m2[c] = st<S>(1.f);
-    }
-    for (int k = tid; k < a.n_edges * z; k += kThreads) {
-      p.stash[k] = st<S>(0.f);
+    for (int c = tid; c < m; c += kThreads) p.par[c] = 0u;
+    // the first messages: S = 38 with a zero stash rebuilds phi(38), +-0
+    const float c0 = phi(clip_phi(ld(st<S>(kPhiMax)) - ld(st<S>(0.f))));
+    for (int k = tid; k < a.n_edges * plane_stride(z); k += kThreads) {
+      p.plane[k] = c0;
     }
   } else {
     // m1 = m2 = 0: the rebuilt c2v is 0 on the first iteration
@@ -962,6 +1441,14 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   }
   if (tid == 0) s_errors = 0;
   __syncthreads();
+  if (kSp) {
+    // the parities of the checks of the entry totals (the tables and the
+    // zeroed words are in place)
+    for (int v = tid; v < n; v += kThreads) {
+      if (ld(p.tot[v]) < 0.f) sp_flip_checks(p, a, v / z, v % z);
+    }
+    __syncthreads();
+  }
 
   int it_done = a.max_iters;
   int ok = 0;
@@ -974,14 +1461,27 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
     } else {
       layered_decode<K, S, kWide, kPop, 1>(p, a, it_done, ok);
     }
+  } else if constexpr (kSp) {
+    // A1 | A2 | B1 | B2, a barrier after each
+    for (int it = 0;; ++it) {
+      sp_edges_a<S>(p, a);
+      __syncthreads();
+      if (!__syncthreads_or(sp_checks<S, kWide>(p, a))) {
+        ok = 1;
+        it_done = it;
+        break;
+      }
+      if (it == a.max_iters) break;
+      sp_edges_b<S, kWide>(p, a);
+      __syncthreads();
+      sp_sums<S>(p, a);
+      __syncthreads();
+    }
   } else {
+    using T = typename Domain<K, S>::T;
     for (int it = 0;; ++it) {
       int bad = 0;
-      if (kSp) {
-        for (int c = tid; c < m; c += kThreads) {
-          bad |= row_pass_sp<S, kWide>(p, a, c, n_sw);
-        }
-      } else {
+      {
         // ---- phase A: syndrome of the current totals + new check state;
         // a thread takes the checks i0 + q*h (q < kChecks) of block row mb ----
         const int h = (z + kChecks - 1) / kChecks;
@@ -996,15 +1496,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
             i[q] = iq < z ? iq : i0;   // past z: i0 again, not written
             xo[q] = p.xbits + (mb * z + i[q]) * n_x;
           }
-          Folded f[kChecks];
+          Folded<T> f[kChecks];
           fold<K, S, kWide, kPop, kChecks>(p, a, mb, i, xo, f);
 #pragma unroll
           for (int q = 0; q < kChecks; ++q) {
             bad |= f[q].par;
-            if (i0 + q * h < z) {
-              p.rec[mb * z + i[q]] = R::pack(f[q].w0, f[q].n1, f[q].n2, f[q].am,
-                                             kPop ? 0u : f[q].neg);
-            }
+            if (i0 + q * h < z) p.rec[mb * z + i[q]] = pack<K, S, kPop>(f[q]);
           }
           i0 += kThreads;
           while (i0 >= h) {
@@ -1020,28 +1517,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
       }
       if (it == a.max_iters) break;
       // ---- phase B: totals = -chan + sum of the rebuilt c2v messages ----
-      if (kSp) {
-        for (int v = tid; v < n; v += kThreads) {
-          const int nb = v / z;
-          const int j = v - nb * z;
-          float acc = -ld(p.chan[v]);
-          const int deg = p.col_deg[nb];
-          for (int k = 0; k < deg; ++k) {
-            const int e = nb * a.dv + k;
-            const int d = p.col_d[e];
-            int i = j - p.col_shift[e];
-            if (i < 0) i += z;
-            const int cmb = p.col_mb[e];
-            const int c = cmb * z + i;
-            const uint32_t w = kWide ? p.bits[c * n_sw + (d >> 5)] : p.bits[c];
-            acc = acc + ld(p.m2[c]) * bit_sign(w, d & 31) *
-                            phi(clip_phi(ld(p.m1[c]) -
-                                         ld(p.stash[(p.row_base[cmb] + d) * z +
-                                                    i])));
-          }
-          p.tot[v] = st<S>(acc);
-        }
-      } else {
+      {
         // a thread takes the variables j0 + q*h (q < kVars) of block column
         // nb; each sums its messages in the column's order
         constexpr int rb = sizeof(V);
@@ -1051,14 +1527,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
         int j0 = tid - nb * h;
         while (nb < a.nb_n) {
           int v[kVars], jr[kVars];
-          float acc[kVars];
+          T acc[kVars];
 #pragma unroll
           for (int q = 0; q < kVars; ++q) {
             const int jq = j0 + q * h;
             const int j = jq < z ? jq : j0;   // past z: j0 again, not written
             v[q] = nb * z + j;
             jr[q] = j * rb;
-            acc[q] = -ld(p.chan[v[q]]);
+            acc[q] = -load_total<T, S>(
+                reinterpret_cast<const unsigned char*>(p.chan + v[q]));
           }
           const int deg = p.col_deg[nb];
           const int4* ct = p.ctab + nb * a.dv;
@@ -1071,13 +1548,19 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
               const uint32_t* xw =
                   kWide ? p.xbits + (off - static_cast<int>(lay.rec)) / rb * n_x
                         : nullptr;
-              acc[q] = acc[q] + message<K, S, kWide, kPop>(r, xw, n_x, e.z,
-                                                           a.alpha, a.beta);
+              acc[q] = add_message<K, S, kWide, kPop>(acc[q], r, xw, n_x, e.z,
+                                                      a.alpha, a.beta);
             }
           }
 #pragma unroll
           for (int q = 0; q < kVars; ++q) {
-            if (j0 + q * h < z) p.tot[v[q]] = st<S>(acc[q]);
+            if (j0 + q * h < z) {
+              if constexpr (Domain<K, S>::kQ) {
+                p.tot[v[q]] = store_q(acc[q]);
+              } else {
+                p.tot[v[q]] = st<S>(acc[q]);
+              }
+            }
           }
           j0 += kThreads;
           while (j0 >= h) {

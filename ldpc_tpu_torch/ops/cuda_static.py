@@ -148,35 +148,39 @@ def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
                store: str = "bfloat16", schedule: str = "flooding",
                popcount_sign: bool = False) -> int:
     """Dynamic shared memory of one block (as ``csrc/decode.cu`` sizes
-    it): the host's edge tables (4 bytes an entry), then for the min-sum
-    family, from a 16-byte boundary, the packed column and row tables (16
-    and 8 bytes an entry), one record per check (16 bytes in bfloat16 and
-    float32, 8 in int8; the sign product is a bit of it, so popcount_sign
-    changes nothing) and the sign words past the first (4 bytes each).  The
-    layered schedule has a (block row, slot) table of 16 bytes an entry in
-    place of the column table, and, from a 16-byte boundary after the
-    records, the row scratch (one 16-byte record per check of a block row,
-    and its sign words past the first), a (block row, block) table of 8
-    bytes an entry and a block count per block row.  For sum-product: the
-    sign words and its planes in the store.  Then the channel and total
-    planes in the store."""
+    it): the host's edge tables (4 bytes an entry), then, from a 16-byte
+    boundary, for the min-sum family the packed column and row tables (16
+    and 8 bytes an entry), one 16-byte record per check (the sign product
+    is a bit or the sign of its values, so popcount_sign changes nothing)
+    and the sign words past the first (4 bytes each).  The layered
+    schedule has a (block row, slot) table of 16 bytes an entry in place
+    of the column table, and, from a 16-byte boundary after the records,
+    the row scratch (one 16-byte record per check of a block row, and its
+    sign words past the first), a (block row, block) table of 8 bytes an
+    entry and a block count per block row.  Sum-product has a 16-byte
+    entry per block edge and per (block column, slot), an 8-byte record,
+    the sign words past the first and a parity word per check, and one
+    float32 per Tanner edge (z rounded up to even a block edge).  Then the
+    channel and total planes in the store."""
     _check_kind(kind)
     sw = _sign_words(plan)
     n_tab = (plan.block_rows * (2 + 2 * plan.dmax_cn) +
              plan.block_cols * (1 + 3 * plan.dmax_vn))
     width = STORES[_store_name(store)].itemsize
     planes = 2 * width * plan.n
+    tables = -(-4 * n_tab // 16) * 16
     if kind == "sum-product":
-        return (4 * (n_tab + plan.m * sw) +
-                width * (2 * plan.m + _n_edges(plan) * plan.z) + planes)
-    record = 8 if _store_name(store) == "int8" else 16
+        stride = plan.z + plan.z % 2       # z rounded up to even
+        return (tables + 16 * (_n_edges(plan) + plan.block_cols *
+                               plan.dmax_vn) +
+                4 * plan.m * (2 + sw) + 4 * _n_edges(plan) * stride + planes)
     edges = plan.block_rows * plan.dmax_cn          # (block row, slot)
-    tables = -(-4 * n_tab // 16) * 16 + 8 * edges
+    tables += 8 * edges
     if schedule == "layered":
-        return (tables + 16 * edges + -(-record * plan.m // 16) * 16 +
-                16 * plan.z + 8 * edges + 4 * plan.block_rows +
+        return (tables + 16 * edges + 16 * plan.m + 16 * plan.z +
+                8 * edges + 4 * plan.block_rows +
                 4 * (plan.z + plan.m) * (sw - 1) + planes)
-    return (tables + 16 * plan.block_cols * plan.dmax_vn + record * plan.m +
+    return (tables + 16 * plan.block_cols * plan.dmax_vn + 16 * plan.m +
             4 * plan.m * (sw - 1) + planes)
 
 

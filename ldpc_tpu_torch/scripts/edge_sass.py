@@ -1,5 +1,6 @@
-"""Count the SASS of the fused kernel's edge loops, flooding (B1) and
-layered (B3), and of the phase-split pair's (B7), on the card's toolkit.
+"""Count the SASS of the fused kernel's edge loops, flooding (B1, and B5 on
+the int8 store), layered (B3) and sum-product (B4), and of the phase-split
+pair's (B7), on the card's toolkit.
 
 ``csrc/decode.cu`` is compiled to a cubin with the kernel's ``nvcc``
 flags for ``sm_90a`` and read with ``cuobjdump -sass``.  In the min-sum
@@ -38,6 +39,25 @@ the redesign of the layered sweep), so the syndrome loop covers the other
 block rows only: the sum an edge-sweep weighs it by (rows - 1) / rows at
 near-earth's 2 block rows, else by 1.
 
+The int8 instance of the same loops (B5: ``decode_kernel<0, int8,
+false, false, false>``) is counted the same way, with two changes for its
+integer domain: the fold's minima are ``FMNMX`` or ``IMNMX``/``VIMNMX``,
+phase B is the loop that loads through a table entry loaded in the same
+body, and in both phases the edges are those loads (a total, a record):
+the integer fold may take three minima an edge and a message two adds.
+
+The sum-product instances (B4: ``decode_kernel<3, __nv_bfloat16, false,
+false, false>`` and its float32 twin) are counted whatever their mapping
+of edges to threads: every innermost loop with a shared load, no global
+access, and a phi (``MUFU``) or an accumulating add is an edge loop, of
+phase A where it lies before the iteration's ``__syncthreads_or``
+(``BAR.RED``), of phase B after it.  Its edges a body are its
+accumulating adds, or else its phi (``MUFU`` over phi's own ``MUFU``
+count, from ``scripts/phi_sass.py``).  A phase's line sums, over its
+loops with a phi and its loops without (of each, the one with the most
+edges a body), the instructions, shared-memory instructions and phi an
+edge: each such loop handles every edge once.
+
 With ``--split`` it counts the phase-split pair of ``csrc/split.cu``
 (B7) instead: in every instance of ``split_r`` and ``split_c`` with a
 check degree of at most 32 (bf16 and f32; each path of the instance's
@@ -58,7 +78,8 @@ On the machine with the toolkit::
 
 prints one JSON line: per instance, each phase's shared instructions an
 edge, instructions an edge and the loop's counts, the sum over the phases
-(``layered``: B3's, an edge-sweep), and ``nvcc --version``'s last line
+(``layered``: B3's, an edge-sweep; ``sum_product``: B4's, per phase and in
+all), and ``nvcc --version``'s last line
 (``--split``: per kernel and store, per path, the edge loop's counts).
 ``--source`` counts another ``decode.cu`` (or ``split.cu``; another
 revision's, unpacked with ``git archive``).
@@ -76,6 +97,7 @@ import sys
 import tempfile
 
 from ..csrc import NVCC_FLAGS, _nvcc
+from . import phi_sass
 from .phi_sass import _cuobjdump, _run
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -86,8 +108,13 @@ _TYPES = {"13__nv_bfloat16": "bfloat16", "f": "float32", "a": "int8"}
 _KERNEL = re.compile(r"decode_kernelILi(\d+)E(13__nv_bfloat16|f|a)"
                      r"Lb([01])ELb([01])ELb([01])E")
 # the instances counted: min-sum, flooding, check degree <= 32, stored sign
+# (int8: B1's loops on the int8 store, B5)
 INSTANCES = {"B1 bfloat16": (0, "bfloat16", 0, 0, 0),
-             "B1 float32": (0, "float32", 0, 0, 0)}
+             "B1 float32": (0, "float32", 0, 0, 0),
+             "B5 int8": (0, "int8", 0, 0, 0)}
+# the sum-product instances counted (B4): flooding, check degree <= 32
+SUM_PRODUCT = {"B4 bfloat16": (3, "bfloat16", 0, 0, 0),
+               "B4 float32": (3, "float32", 0, 0, 0)}
 # the layered instances counted: min-sum, check degree <= 32, stored sign
 LAYERED = {"B3 bfloat16": (0, "bfloat16", 0, 1, 0),
            "B3 float32": (0, "float32", 0, 1, 0)}
@@ -106,6 +133,7 @@ _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);")
 _REG = re.compile(r"\bR(\d+)\b")
 _CONVERSIONS = {"F2F", "F2FP", "F2I", "I2F", "I2FP", "FRND"}
+_MINS = {"FMNMX", "IMNMX", "VIMNMX"}
 _GLOBAL = {"LDG", "LD", "LDGSTS", "STG", "ST"}
 _GLOBAL_LOADS = {"LDG", "LD"}
 
@@ -199,49 +227,80 @@ def accumulating_adds(body: list[Insn]) -> int:
     return count
 
 
+def dependent_loads(body: list[Insn]) -> int:
+    """Shared loads whose address derives from a value loaded earlier in
+    the same pass of the body (a record or a total found through a table
+    entry): one an edge in the edge loops, whatever the arithmetic."""
+    tainted: set[int] = set()
+    count = 0
+    for insn in body:
+        addr = re.findall(r"\[([^\]]*)\]", insn.operands)
+        if insn.op == "LDS" and any(r in tainted for a in addr
+                                    for r in _regs(a)):
+            count += 1
+        if insn.op == "LDS" or any(r in tainted for r in _srcs(insn)):
+            tainted.update(_dests(insn))
+        else:
+            tainted.difference_update(_dests(insn))
+    return count
+
+
 def loop_counts(body: list[Insn]) -> dict:
     """Instructions, shared-memory instructions by opcode, conversions and
-    the float opcodes that classify a loop body."""
+    the opcodes that classify a loop body."""
     ops = collections.Counter(i.op + i.mods for i in body)
     shared = {k: v for k, v in ops.items()
-              if k.startswith(("LDS", "STS"))}
+              if k.startswith(("LDS", "STS", "ATOMS"))}
     return {"start": hex(body[0].addr), "end": hex(body[-1].addr),
             "instructions": len(body),
             "shared": sum(shared.values()),
             "shared_by_opcode": dict(sorted(shared.items())),
             "conversions": sum(1 for i in body if i.op in _CONVERSIONS),
             "fmnmx": sum(1 for i in body if i.op == "FMNMX"),
+            "mins": sum(1 for i in body if i.op in _MINS),
             "fsetp": sum(1 for i in body if i.op == "FSETP"),
             "xors": sum(1 for i in body if i.op == "LOP3" and
                         i.operands.split(",")[-2].strip() in _XOR_LUTS),
             "accumulating_adds": accumulating_adds(body),
+            "dependent_loads": dependent_loads(body),
+            "mufu": sum(1 for i in body if i.op == "MUFU"),
             "global": sum(1 for i in body if i.op in _GLOBAL),
             "shared_loads": sum(1 for i in body if i.op == "LDS"),
             "global_loads": sum(1 for i in body if i.op in _GLOBAL_LOADS)}
 
 
 def classify(c: dict) -> str | None:
-    """Phase "A", "B" or None (another loop) of a loop's counts."""
+    """Phase "A", "B" or None (another loop) of a loop's counts: phase A
+    holds the fold's minima (``FMNMX``, or the integer domain's ``IMNMX``),
+    phase B an accumulating add."""
     if c["global"]:
         return None
-    if c["fmnmx"]:
+    if c["mins"]:
         return "A"
     if c["accumulating_adds"] and c["shared"]:
         return "B"
     return None
 
 
-def edge_loops(insns: list[Insn]) -> dict:
+def edge_loops(insns: list[Insn], integer: bool = False) -> dict:
     """Each phase's edge loop (the one with the most edges a body) with its
     edges and per-edge counts, the other candidates, and the sum of the two
-    phases' shared instructions an edge."""
+    phases' shared instructions an edge.  With ``integer`` (the int8
+    instance, whose adds are integer ones) a phase-B loop is one that loads
+    through a table, and in both phases the edges are those loads
+    (``dependent_loads``: a total in A, a record in B): the integer fold may
+    take three minima an edge, and a message two adds."""
     res: dict = {"loops": []}
     for body in innermost_loops(insns):
         c = loop_counts(body)
         phase = classify(c)
+        if integer and phase != "A":
+            phase = ("B" if c["dependent_loads"] and not c["global"]
+                     else None)
         if phase is None:
             continue
-        edges = (c["fmnmx"] / 2 if phase == "A"
+        edges = (c["dependent_loads"] if integer
+                 else c["mins"] / 2 if phase == "A"
                  else c["accumulating_adds"])
         c.update(phase=phase, edges=edges,
                  shared_per_edge=c["shared"] / edges,
@@ -255,6 +314,52 @@ def edge_loops(insns: list[Insn]) -> dict:
                                   res["B"]["shared_per_edge"])
         res["instructions_per_edge"] = (res["A"]["instructions_per_edge"] +
                                         res["B"]["instructions_per_edge"])
+    return res
+
+
+def sum_product_loops(insns: list[Insn], phi_mufu: int) -> dict:
+    """The edge loops of a sum-product instance, whatever their mapping:
+    every innermost loop with a shared load, no global access, and a phi
+    (``MUFU``) or an accumulating add.  A loop before the iteration's
+    ``__syncthreads_or`` (``BAR.RED``) is phase A, one after it phase B.
+    Its edges a body are its accumulating adds (a sum takes one an edge)
+    or else its phi (``MUFU`` over ``phi_mufu``, phi's own count).  Per
+    phase and in all: the sum over its loops (of those with a phi, and of
+    those without, the one with the most edges a body: an unrolled body,
+    not its remainder) of the instructions, the shared-memory instructions
+    and the phi an edge."""
+    bar = min((i.addr for i in insns if i.op == "BAR" and
+               i.mods.startswith(".RED")), default=None)
+    if bar is None:
+        raise RuntimeError("no __syncthreads_or (BAR.RED) in the listing")
+    res: dict = {"loops": []}
+    for body in innermost_loops(insns):
+        c = loop_counts(body)
+        if (c["global"] or not c["shared_loads"] or
+                not (c["mufu"] or c["accumulating_adds"])):
+            continue
+        edges = c["accumulating_adds"] or c["mufu"] / phi_mufu
+        c.update(phase="A" if body[-1].addr < bar else "B", edges=edges,
+                 phi_per_edge=c["mufu"] / phi_mufu / edges,
+                 shared_per_edge=c["shared"] / edges,
+                 instructions_per_edge=c["instructions"] / edges)
+        res["loops"].append(c)
+    keys = ("instructions_per_edge", "shared_per_edge", "phi_per_edge")
+    for phase in ("A", "B"):
+        # of the loops with a phi, and of those without, the one with the
+        # most edges a body (an unrolled body, not its remainder)
+        loops = []
+        for with_phi in (True, False):
+            cands = [c for c in res["loops"] if c["phase"] == phase and
+                     bool(c["mufu"]) == with_phi]
+            if cands:
+                loops.append(max(cands, key=lambda c: c["edges"]))
+        if not loops:
+            raise RuntimeError(f"no sum-product loop in phase {phase}")
+        res[phase] = {k: sum(c[k] for c in loops) for k in keys}
+        res[phase]["loops"] = len(loops)
+    for k in keys:
+        res[k] = res["A"][k] + res["B"][k]
     return res
 
 
@@ -409,11 +514,24 @@ def analyse(sass: str) -> dict:
                 f"{bool(pop)}>")
         if name not in funcs:
             raise RuntimeError(f"{name} is not in the listing")
-        res = edge_loops(funcs[name])
+        res = edge_loops(funcs[name], integer=s == "int8")
         if res["A"] is None or res["B"] is None:
             raise RuntimeError(f"{name}: no edge loop of phase "
                                f"{'A' if res['A'] is None else 'B'}")
         out[label] = res
+    return out
+
+
+def analyse_sum_product(sass: str, phi_mufu: int) -> dict:
+    """The edge loops of each counted sum-product instance in a listing."""
+    funcs = {instance_name(k): v for k, v in parse(sass).items()}
+    out = {}
+    for label, (k, s, w, lay, pop) in SUM_PRODUCT.items():
+        name = (f"decode_kernel<{k}, {s}, {bool(w)}, {bool(lay)}, "
+                f"{bool(pop)}>")
+        if name not in funcs:
+            raise RuntimeError(f"{name} is not in the listing")
+        out[label] = sum_product_loops(funcs[name], phi_mufu)
     return out
 
 
@@ -456,6 +574,12 @@ def count(path: pathlib.Path = _DECODE) -> dict:
     sass, version = _sass(path)
     res = analyse(sass)
     res["layered"] = analyse_layered(sass)
+    phi_mufu = phi_sass.count(path)["by_opcode"].get("MUFU", 0)
+    if not phi_mufu:
+        raise RuntimeError("phi holds no MUFU: its evaluations cannot be "
+                           "counted")
+    res["sum_product"] = analyse_sum_product(sass, phi_mufu)
+    res["phi_mufu"] = phi_mufu
     res["source"] = str(path)
     res["nvcc"] = version
     return res
@@ -491,6 +615,16 @@ def summary(res: dict) -> str:
             f"({r['delta']['instructions_per_edge']:.3g}), "
             f"{r['shared_per_edge']:.3g} ({r['instructions_per_edge']:.3g}) "
             "an edge-sweep")
+    for label, r in res.get("sum_product", {}).items():
+        parts.append(
+            f"{label}: phase A {r['A']['shared_per_edge']:.3g} shared "
+            f"({r['A']['instructions_per_edge']:.4g} instructions, "
+            f"{r['A']['phi_per_edge']:.3g} phi) an edge, phase B "
+            f"{r['B']['shared_per_edge']:.3g} "
+            f"({r['B']['instructions_per_edge']:.4g}, "
+            f"{r['B']['phi_per_edge']:.3g} phi), "
+            f"{r['instructions_per_edge']:.4g} instructions and "
+            f"{r['phi_per_edge']:.3g} phi in all")
     return "; ".join(parts)
 
 

@@ -145,13 +145,15 @@ def test_kernel_tables_walk_the_tanner_graph(ref):
 
 
 # bytes a block: min-sum: 1,360 bytes of edge tables, padded to 16, + 1,024
-# + 512 of packed column and row tables + 1,022 records of 16 bytes (bf16,
-# f32) + 2 x 8,176 x the store's width (chan, totals); sum-product: the
-# tables + 1,022 sign words + (2 x 1,022 + 64 x 511 + 2 x 8,176) x width
+# + 512 of packed column and row tables + 1,022 records of 16 bytes + 2 x
+# 8,176 x the store's width (chan, totals); sum-product: the tables + 64
+# block-edge and 64 column entries of 16 bytes + 1,022 x (8-byte record +
+# parity word) + 64 x 512 f32 (the plane, z rounded up to even) + 2 x
+# 8,176 x width
 @pytest.mark.parametrize("kind,store,total", [
     ("min-sum", "bfloat16", 51952), ("normalized-min-sum", "bfloat16", 51952),
     ("min-sum", "float32", 84656), ("offset-min-sum", "float32", 84656),
-    ("sum-product", "bfloat16", 107648), ("sum-product", "float32", 209848)])
+    ("sum-product", "bfloat16", 179448), ("sum-product", "float32", 212152)])
 def test_near_earth_state_fits_one_block(kind, store, total):
     """One word's kernel state in shared memory, edge tables included,
     under a block's 227 KB (232,448 bytes) for every variant."""

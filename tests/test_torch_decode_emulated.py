@@ -9,10 +9,13 @@ memory a static buffer, the launch a loop over the blocks, and
 branch.  The float arithmetic is the kernel's (IEEE float32, no contraction,
 bf16 rounded to nearest even), so every word of the min-sum family must
 equal the plain version: converged or not, at 0, 1 and 12 iterations, on
-odd batches with NaN and +-inf LLRs.  Sum-product is left out: the host's
-``tanhf``/``logf`` and torch's CPU kernels differ in the last bits.  This is
-no stand-in for the card (``tests/test_torch_gpu.py``): it checks the
-kernel's indexing, layout and arithmetic, not its compilation for sm_90a.
+odd batches with NaN and +-inf LLRs.  The host's ``tanhf``/``logf`` and
+torch's CPU kernels differ in the last bits, so sum-product is held to a
+plain version whose phi is the kernel's own ``phi`` compiled here (an
+entry point the header's build adds), at the plain version's contract: at
+most 0.1% of words may differ.  This is no stand-in for the card
+(``tests/test_torch_gpu.py``): it checks the kernel's indexing, layout and
+arithmetic, not its compilation for sm_90a.
 """
 
 import ctypes
@@ -49,10 +52,11 @@ _HEADER = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <thread>
 #include <vector>
-using std::isnan; using std::max; using std::min;
+using std::abs; using std::isnan; using std::max; using std::min;
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct int2 { int x, y; };
@@ -82,6 +86,15 @@ inline float __bfloat162float(__nv_bfloat16 h) {
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.v; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int k = 0; k < 32; ++k) r |= ((x >> k) & 1u) << (31 - k);
+  return r;
+}
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+  s &= 31;
+  return s ? (hi << s) | (lo >> (32 - s)) : hi;
+}
 struct Dim { unsigned x; };
 inline thread_local Dim threadIdx;
 inline Dim blockIdx;
@@ -108,6 +121,9 @@ inline int __reduce_add_sync(unsigned, int v) {
 }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicXor(unsigned* p, unsigned v) {
+  return __atomic_fetch_xor(p, v, __ATOMIC_SEQ_CST);
 }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -142,6 +158,12 @@ _EDITS = (("#include <cuda_bf16.h>", '#include "emulation.h"'),
            "unsigned char* smem = g_smem;"),
           ("kernel<<<batch, kThreads, static_cast<size_t>(smem), stream>>>(a);",
            "emulate(kernel, batch, a);"))
+# the kernel's phi, callable from the tests
+_PHI_ENTRY = """
+extern "C" void phi_values(const float* x, float* y, int n) {
+  for (int k = 0; k < n; ++k) y[k] = phi(x[k]);
+}
+"""
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +177,7 @@ def lib(tmp_path_factory):
         assert cuda in src, f"decode.cu no longer holds {cuda!r}"
         src = src.replace(cuda, cpu)
     (out / "emulation.h").write_text(_HEADER)
-    (out / "decode.cpp").write_text(src)
+    (out / "decode.cpp").write_text(src + _PHI_ENTRY)
     so = out / "libdecode.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
                     "-shared", "-Wno-unknown-pragmas", "-o", str(so),
@@ -166,6 +188,7 @@ def lib(tmp_path_factory):
     lib.decode_launch.argtypes = [i, i, i, i, p, i, i, i, i, i, i, i, i, i,
                                   p, i, f, f, p, p, p, p]
     lib.decode_launch.restype = i
+    lib.phi_values.argtypes = [p, p, i]
     return lib
 
 
@@ -321,3 +344,70 @@ def test_layered_loops_with_more_checks_than_threads_take(lib, store,
                         "layered", popcount)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _saturating_llr(n, snrs, per, seed):
+    """LLRs at 24 times the BPSK scale, so that most lie beyond the int8
+    store's 15.875 (Q4.3 saturates at +-127 at entry, and the totals sum
+    saturated messages); NaN and +-inf in the first word."""
+    llr = _llr(n, snrs, per, seed) * 24.0
+    llr[0, :3] = torch.tensor([np.nan, np.inf, -np.inf])
+    return llr
+
+
+@pytest.mark.parametrize("max_iters", [1, 12])
+@pytest.mark.parametrize("schedule,popcount", [
+    ("flooding", False), ("flooding", True), ("layered", False),
+    ("layered", True)])
+@pytest.mark.parametrize("code", ["wifi r1/2", "highdeg"])
+def test_int8_min_sum_saturates_like_the_plain_version(lib, code, schedule,
+                                                      popcount, max_iters):
+    """Min-sum with int8 state runs in Q4.3 integers: totals and messages
+    clamped at +-127 in phase A's fold, phase B's sums and the layered
+    deltas must give every word of the plain version's f32 arithmetic."""
+    qc, snrs = ((wifi_code(1944, 1 / 2), (-2.0, 0.0, 2.0)) if code[0] == "w"
+                else (_high_degree_code(), (2.0, 4.0)))
+    llr = _saturating_llr(qc.n, snrs, 3, 23)
+    finite = llr[torch.isfinite(llr)]
+    assert (finite.abs() > 15.875).float().mean() > 0.5
+    got, want = _decode(lib, qc, llr, max_iters, "min-sum", "int8", schedule,
+                        popcount)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the layered sweep, its totals pinned at +-127, converges no word of
+    # the 802.11n batch in 12 sweeps here, in the plain version as well
+    if max_iters == 12 and (schedule == "flooding" or code == "highdeg"):
+        assert got[2].any() and not got[2].all()
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 12])
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("code", ["wifi r5/6", "highdeg"])
+def test_sum_product_meets_the_plain_versions_contract(lib, monkeypatch,
+                                                       code, store,
+                                                       max_iters):
+    """Sum-product (A1 | A2 | B1 | B2, the kept message, 2 phi an edge) on
+    true LLRs (2y/sigma^2) in the waterfall: at most 0.1% of words differ
+    from the plain version with the kernel's phi (none did when this test
+    was written)."""
+    qc, snrs = ((wifi_code(1944, 5 / 6), (2.0, 2.5, 3.0)) if code[0] == "w"
+                else (_high_degree_code(), (2.0, 4.0)))
+    per = 64
+    sigma = np.sqrt(0.5 / 10 ** (np.asarray(snrs) / 10))
+    scale = torch.from_numpy(np.repeat(2 / sigma ** 2, per)
+                             .astype(np.float32))[:, None]
+    llr = (_llr(qc.n, snrs, per, 21) * scale).contiguous()
+
+    def kernel_phi(x):
+        x = x.contiguous()
+        y = torch.empty_like(x)
+        lib.phi_values(x.data_ptr(), y.data_ptr(), x.numel())
+        return y
+
+    monkeypatch.setattr(cuda_static, "_phi", kernel_phi)
+    got, want = _decode(lib, qc, llr, max_iters, "sum-product", store,
+                        "flooding", False)
+    differ = (got[0] != want[0]) | (got[1] != want[1]) | (got[2] != want[2])
+    assert int(differ.sum()) <= 1e-3 * llr.shape[0]
+    if max_iters == 12:
+        assert got[2].any() and not got[2].all()

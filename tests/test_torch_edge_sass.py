@@ -9,6 +9,7 @@ from ldpc_tpu_torch.scripts import edge_sass
 
 _B1 = "_ZN12_GLOBAL__N_113decode_kernelILi0E13__nv_bfloat16Lb0ELb0ELb0EEEvNS_4ArgsE"
 _F32 = "_ZN12_GLOBAL__N_113decode_kernelILi0EfLb0ELb0ELb0EEEvNS_4ArgsE"
+_I8 = "_ZN12_GLOBAL__N_113decode_kernelILi0EaLb0ELb0ELb0EEEvNS_4ArgsE"
 
 # a phase-A loop (0x10-0x90: two edges, 2 FMNMX each, 3 shared loads), a
 # phase-B loop (0xb0-0x110: two accumulating FADDs, 3 shared loads, a
@@ -47,9 +48,10 @@ _BODY = """
 """
 
 
-def _listing(names=(_B1, _F32)):
+def _listing(names=(_B1, _F32, _I8)):
     return "\n\tcode for sm_90a\n" + "".join(
-        f"\t\tFunction : {n}\n{_BODY}" for n in names)
+        f"\t\tFunction : {n}\n{_I8_BODY if n == _I8 else _BODY}"
+        for n in names)
 
 
 def test_parse_drops_nops_and_keeps_predicates():
@@ -417,3 +419,168 @@ def test_count_split_raises_without_the_toolkit(monkeypatch):
     monkeypatch.setattr(edge_sass, "_nvcc", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         edge_sass.count_split()
+
+
+# the int8 instance in the integer domain: phase A loads a table entry
+# and, through it, two totals (two edges), with minima VIMNMX and IMNMX,
+# three an edge; phase B loads a table entry and, through it, two records
+# (two edges), and adds the messages with IADD3 and a predicated pair
+_I8_BODY = """
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.64 R10, [R3] ;
+        /*0020*/                   IADD3 R2, R10, R40, RZ ;
+        /*0030*/                   LDS.S8 R4, [R2] ;
+        /*0040*/                   LDS.S8 R5, [R2+0x100] ;
+        /*0050*/                   IADD3 R6, R4, -R7, RZ ;
+        /*0060*/                   IABS R6, R6 ;
+        /*0070*/                   VIMNMX R8, R8, R6, PT ;
+        /*0080*/                   VIMNMX R9, R6, R9, !PT ;
+        /*0090*/                   VIMNMX R14, R14, R9, PT ;
+        /*00a0*/                   IMNMX R12, R12, R5, PT ;
+        /*00b0*/                   IMNMX R13, R5, R13, !PT ;
+        /*00c0*/                   IMNMX R15, R15, R13, PT ;
+        /*00d0*/              @P0 BRA 0x10 ;
+        /*00e0*/                   STS.128 [R2], R8 ;
+        /*00f0*/                   LDS.128 R12, [R3+0x10] ;
+        /*0100*/                   IADD3 R5, R12, R40, RZ ;
+        /*0110*/                   LDS.128 R16, [R5] ;
+        /*0120*/                   LDS.128 R24, [R13+0x10] ;
+        /*0130*/                   SEL R20, R17, R18, P1 ;
+        /*0140*/                   IADD3 R21, R21, R20, -R19 ;
+        /*0150*/               @P2 IADD3 R22, R22, -R25, RZ ;
+        /*0160*/              @!P2 IADD3 R22, R22, R25, RZ ;
+        /*0170*/                   VIADD R30, R30, 0x1 ;
+        /*0180*/                   IADD3 R3, R3, 0x10, RZ ;
+        /*0190*/              @!P1 BRA 0xf0 ;
+        /*01a0*/                   EXIT ;
+"""
+
+
+def test_int8_loops_count_integer_minima_and_table_loads():
+    body = edge_sass.parse(f"\t\tFunction : {_I8}\n{_I8_BODY}")[_I8]
+    res = edge_sass.edge_loops(body, integer=True)
+    a, b = res["A"], res["B"]
+    # the edges are the loads through the loop's table entry
+    assert (a["mins"], a["fmnmx"], a["edges"]) == (6, 0, 2)
+    assert a["instructions_per_edge"] == 6.5 and a["conversions"] == 0
+    assert a["shared_per_edge"] == 1.5
+    assert (b["dependent_loads"], b["edges"]) == (2, 2)
+    assert b["shared_per_edge"] == 1.5 and b["instructions_per_edge"] == 5.5
+    # read as a float instance, no add of phase B accumulates
+    assert b["accumulating_adds"] == 0
+    assert edge_sass.edge_loops(body)["B"] is None
+
+
+def test_dependent_loads_follow_loaded_values():
+    listing = """
+        Function : k
+        /*0000*/                   LDS.64 R4, [R2] ;
+        /*0010*/                   IADD3 R6, R5, R3, RZ ;
+        /*0020*/                   LDS.U16 R7, [R6+0x10] ;
+        /*0030*/                   MOV R6, R3 ;
+        /*0040*/                   LDS.U16 R8, [R6] ;
+        /*0050*/                   LDS R9, [R7] ;
+        /*0060*/              @P0 BRA 0x0 ;
+"""
+    body = edge_sass.parse(listing)["k"]
+    # R6 holds a loaded value, then is overwritten from R3; R7 was loaded
+    assert edge_sass.dependent_loads(body) == 2
+
+
+_SP = "_ZN12_GLOBAL__N_113decode_kernelILi3EfLb0ELb0ELb0EEEvNS_4ArgsE"
+_SPB = ("_ZN12_GLOBAL__N_113decode_kernelILi3E13__nv_bfloat16Lb0ELb0ELb0EEEv"
+        "NS_4ArgsE")
+# sum-product: an init loop (stores only), A1 (two phi of 2 MUFU: two
+# edges, a store and a shared atomic), A2 (a sum: one edge), the
+# iteration's __syncthreads_or, B1 (one phi: one edge), B2 (two sums a
+# body: two edges) and a loop with a global load
+_SP_BODY = """
+        /*0000*/                   STS [R2], R3 ;
+        /*0010*/              @P0 BRA 0x0 ;
+        /*0020*/                   LDS R4, [R2] ;
+        /*0030*/                   LDS R5, [R3] ;
+        /*0040*/                   FADD R6, R4, -R5 ;
+        /*0050*/                   MUFU.EX2 R7, R6 ;
+        /*0060*/                   MUFU.RCP R8, R7 ;
+        /*0070*/                   MUFU.EX2 R9, R6 ;
+        /*0080*/                   MUFU.RCP R10, R9 ;
+        /*0090*/               @P1 ATOMS.XOR RZ, [R11], R12 ;
+        /*00a0*/                   STS [R3], R8 ;
+        /*00b0*/              @P0 BRA 0x20 ;
+        /*00c0*/                   LDS R4, [R2] ;
+        /*00d0*/                   FADD R13, R13, |R4| ;
+        /*00e0*/                   LOP3.LUT R14, R14, R4, RZ, 0xfc, !PT ;
+        /*00f0*/              @P0 BRA 0xc0 ;
+        /*0100*/                   BAR.RED.OR.DEFER_BLOCKING 0x0, P0 ;
+        /*0110*/                   LDS.64 R4, [R2] ;
+        /*0120*/                   LDS R5, [R3] ;
+        /*0130*/                   MUFU.EX2 R7, R5 ;
+        /*0140*/                   MUFU.RCP R8, R7 ;
+        /*0150*/                   STS [R3], R8 ;
+        /*0160*/              @P0 BRA 0x110 ;
+        /*0170*/                   LDS R4, [R2] ;
+        /*0180*/                   LDS R5, [R3] ;
+        /*0190*/                   FADD R20, R20, R4 ;
+        /*01a0*/                   FADD R21, R21, R5 ;
+        /*01b0*/              @P0 BRA 0x170 ;
+        /*01c0*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*01d0*/                   FADD R22, R22, R4 ;
+        /*01e0*/              @P0 BRA 0x1c0 ;
+        /*01f0*/                   EXIT ;
+"""
+
+
+def test_sum_product_loops_are_split_by_the_barrier():
+    insns = edge_sass.parse(f"\t\tFunction : {_SP}\n{_SP_BODY}")[_SP]
+    res = edge_sass.sum_product_loops(insns, phi_mufu=2)
+    assert [(c["start"], c["phase"], c["edges"]) for c in res["loops"]] == [
+        ("0x20", "A", 2), ("0xc0", "A", 1), ("0x110", "B", 1),
+        ("0x170", "B", 2)]
+    a, b = res["A"], res["B"]
+    assert a["loops"] == 2 and b["loops"] == 2
+    assert a["instructions_per_edge"] == 10 / 2 + 4 / 1
+    assert a["shared_per_edge"] == 4 / 2 + 1 / 1      # the atomic is shared
+    assert (a["phi_per_edge"], b["phi_per_edge"]) == (1, 1)
+    assert b["instructions_per_edge"] == 6 / 1 + 5 / 2
+    assert res["phi_per_edge"] == 2
+    assert res["instructions_per_edge"] == pytest.approx(9 + 8.5)
+
+
+def test_sum_product_keeps_an_unrolled_body_not_its_remainder():
+    # A2's sum unrolled by two, and its remainder: only the first counts
+    body = _SP_BODY.replace(
+        "        /*00f0*/              @P0 BRA 0xc0 ;\n",
+        "        /*00f0*/              @P0 BRA 0xc0 ;\n"
+        "        /*00f4*/                   LDS R4, [R2] ;\n"
+        "        /*00f8*/                   FADD R13, R13, R4 ;\n"
+        "        /*00fc*/              @P0 BRA 0xf4 ;\n")
+    insns = edge_sass.parse(f"\t\tFunction : {_SP}\n{body}")[_SP]
+    res = edge_sass.sum_product_loops(insns, phi_mufu=2)
+    assert len([c for c in res["loops"] if c["phase"] == "A"]) == 3
+    assert res["A"]["loops"] == 2
+    assert res["A"]["instructions_per_edge"] == 10 / 2 + 4 / 1
+
+
+def test_sum_product_needs_the_barrier_and_both_phases():
+    insns = edge_sass.parse(f"\t\tFunction : {_SP}\n{_SP_BODY}")[_SP]
+    no_bar = [i for i in insns if i.op != "BAR"]
+    with pytest.raises(RuntimeError, match="BAR.RED"):
+        edge_sass.sum_product_loops(no_bar, phi_mufu=2)
+    a_only = [i for i in insns if i.addr < 0x110]
+    with pytest.raises(RuntimeError, match="phase B"):
+        edge_sass.sum_product_loops(a_only, phi_mufu=2)
+
+
+def test_analyse_sum_product_and_summary():
+    listing = "".join(f"\t\tFunction : {n}\n{_SP_BODY}" for n in (_SP, _SPB))
+    res = edge_sass.analyse_sum_product(listing, phi_mufu=2)
+    assert set(res) == set(edge_sass.SUM_PRODUCT)
+    line = edge_sass.summary({**edge_sass.analyse(_listing()),
+                              "sum_product": res})
+    assert "B5 int8: phase A 1.5 shared" in line
+    assert ("B4 float32: phase A 3 shared (9 instructions, 1 phi) an edge, "
+            "phase B 4 (8.5, 1 phi), 17.5 instructions and 2 phi in all"
+            in line)
+    with pytest.raises(RuntimeError, match="not in the listing"):
+        edge_sass.analyse_sum_product(
+            f"\t\tFunction : {_SP}\n{_SP_BODY}", phi_mufu=2)

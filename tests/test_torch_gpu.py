@@ -243,6 +243,36 @@ def test_edge_sass_counts_the_b3_loops(cuda):
         assert r["shared_per_edge"] < B3_PARENT_SHARED_PER_EDGE_SWEEP
 
 
+# B5 and B4 before their redesign (PERF.md: edge_sass.py's analysis of the
+# listing of that revision's decode.cu, nvcc 12.9): int8 min-sum 23.5 + 18
+# instructions an edge, with a conversion an edge in each phase; sum-product
+# 3 phi an edge, 219 (bf16) and 212 (f32) instructions
+B5_PARENT_INSTRUCTIONS_PER_EDGE = 41.5
+B4_PARENT_INSTRUCTIONS_PER_EDGE = {"B4 bfloat16": 219.0, "B4 float32": 212.0}
+
+
+@pytest.fixture(scope="module")
+def edge_counts():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ldpc_tpu_torch.scripts import edge_sass
+    return edge_sass.count()
+
+
+def test_edge_sass_counts_the_b5_loops_in_integers(edge_counts):
+    r = edge_counts["B5 int8"]
+    for phase in ("A", "B"):
+        assert r[phase]["edges"] >= 1 and r[phase]["conversions"] == 0
+    assert r["instructions_per_edge"] < B5_PARENT_INSTRUCTIONS_PER_EDGE
+
+
+def test_edge_sass_counts_two_phi_an_edge_in_b4(edge_counts):
+    for label, r in edge_counts["sum_product"].items():
+        assert r["A"]["phi_per_edge"] == 1 and r["B"]["phi_per_edge"] == 1
+        assert r["instructions_per_edge"] < B4_PARENT_INSTRUCTIONS_PER_EDGE[
+            label]
+
+
 def _finite_llr(n, snrs, per, seed, device):
     """As _llr without the non-finite entries: the split decoder, as the
     Pallas pair, does not sanitise them and the fused kernel does."""
