@@ -93,9 +93,9 @@
 //     sign words 1..   m * (ceil(dc/32) - 1) uint32, likewise (dc > 32)
 //     parity           m uint32: the parity of each check's totals
 //     plane            n_edges * zp float32 (block edge e, check i at
-//                      e*zp + i; zp = z rounded up to even, the entries
-//                      past z padding): phi(|v|) with v's sign, then the
-//                      message
+//                      e*zp + i; zp = z rounded up to a multiple of 4, the
+//                      entries past z padding): phi(|v|) with v's sign,
+//                      then the message
 //   chan, totals       n Store each (variable frame)
 // Bytes per block (dynamic shared memory, tables included):
 //                      near-earth        802.11n (n 1944)
@@ -104,8 +104,8 @@
 //   min-sum, f32       84,656            40,224    24,832
 //   min-sum, int8      35,600            28,560    13,168
 //   layered            + 8,696           - 576     + 1,696
-//   sum-product, bf16  179,448           57,376    42,296
-//   sum-product, f32   212,152           65,152    50,072
+//   sum-product, bf16  179,448           58,064    42,928
+//   sum-product, f32   212,152           65,840    50,704
 // Near-earth min-sum leaves room for four blocks an SM in bf16 and six in
 // int8 (registers allow fewer) and two in f32 (layered: three in bf16, two
 // in f32); sum-product for one (slow, and right).
@@ -126,22 +126,23 @@
 // per-word exit gives the same outputs as its per-tile exit, and no pad row
 // is needed since z is indexed exactly.
 //
-// Sum-product.  A1: a thread takes the checks i0 and i0 + h of one block
-// edge (the items numbered across block edges, so all 256 threads work
-// where z is small; one edge-table entry for both) and computes v = t - c2v
-// from the total and the message kept from B1, and phi(|v|) into the plane
-// with v's sign; A2: a thread per check sums S over its slots in row-slot
-// order and gathers the sign words, the sign product and the parity of
-// its totals; B1: per edge as A1, c2v = sgn * phi(S - stash) into the
-// plane, the stash being the plane's phi(|v|) rounded to the store where
-// B1 reads it; B2: a thread takes four variables of a block column and sums
-// their messages in the column's order, as min-sum's phase B does, and a
-// negative total flips a parity word of each of its checks (a shared
-// atomic xor, in a branch that a word near convergence seldom takes; the
-// entry totals' flips are made at entry).  2 phi an edge, not the
-// TPU kernel's 3 (its phase A rebuilds the old message from the stored S,
-// sign and stash, which phase B computed the iteration before), every phi
-// on an edge item, and 4 barriers an iteration.
+// Sum-product.  A1: a thread takes the checks i0 + q*h (q < 4) of one
+// block edge (the items numbered across block edges, so all 256 threads
+// work where z is small; one edge-table entry for the four) and computes
+// v = t - c2v from the total and the message kept from B1, and phi(|v|)
+// into the plane with v's sign; A2: a thread per check sums S over its
+// slots in row-slot order and gathers the sign words, the sign product and
+// the parity of its totals; B1: per edge as A1, c2v = sgn * phi(S -
+// stash) into the plane, the stash being the plane's phi(|v|) rounded to
+// the store where B1 reads it; B2: a thread takes four variables of a
+// block column and sums their messages in the column's order, as
+// min-sum's phase B does, and a negative total flips a parity word of
+// each of its checks (a shared atomic xor, in a branch that a word near
+// convergence seldom takes; the entry totals' flips are made at entry).
+// 2 phi an edge, not the TPU kernel's 3 (its phase A rebuilds the old
+// message from the stored S, sign and stash, which phase B computed the
+// iteration before), every phi on an edge item, and 4 barriers an
+// iteration.
 //
 // The layered hazard.  A block of the base matrix may hold several shifts
 // (near-earth: two in each), so two edges of one row reach the same
@@ -216,6 +217,10 @@ constexpr int kThreads = 256;
 // that it sums together (flooding phase B, layered (c)); each edge-table
 // entry is loaded once for all of them.
 constexpr int kChecks = 2;
+// The checks of one block edge that a thread of sum-product's edge steps
+// (A1, B1) takes: four phi chains in flight, and the item's table entry
+// and bookkeeping shared by four edges.
+constexpr int kEdgeChecks = 4;
 constexpr int kVars = 4;
 constexpr float kBig = 3.0e38f;       // two-min fold start (pallas _BIG)
 constexpr float kLlrClip = 1.0e30f;   // +-inf -> +-1e30, as at kernel entry
@@ -490,10 +495,11 @@ __host__ __device__ __forceinline__ int sign_words(int dc) {
 }
 
 // sum-product: a block edge's entries in the plane, z rounded up to a
-// multiple of kChecks, so that every check i0 + q*h of an edge item has an
-// entry and the item writes it unconditionally (those past z are padding)
+// multiple of kEdgeChecks, so that every check i0 + q*h of an edge item
+// has an entry and the item writes it unconditionally (those past z are
+// padding)
 __host__ __device__ __forceinline__ int plane_stride(int z) {
-  return kChecks * ((z + kChecks - 1) / kChecks);
+  return kEdgeChecks * ((z + kEdgeChecks - 1) / kEdgeChecks);
 }
 
 struct Args {
@@ -1108,14 +1114,14 @@ __device__ __forceinline__ void layered_decode(const Smem<S>& p,
 // edge, not 3.  The stash (phi(|v|) rounded to the store) is the plane's
 // value rounded where B1 reads it. ----
 
-// A thread of A1 and B1 takes the checks i0 + q*h (q < kChecks, h =
-// ceil(z/kChecks)) of one block edge, the (block edge, i0) items numbered
+// A thread of A1 and B1 takes the checks i0 + q*h (q < kEdgeChecks, h =
+// ceil(z/kEdgeChecks)) of one block edge, the (block edge, i0) items numbered
 // across block edges, so that every thread has work where z is small; the
 // block edge's table entry is loaded once for them.
 struct EdgeItems {
   int h, e, i0, de, di;
   __device__ explicit EdgeItems(int z)
-      : h((z + kChecks - 1) / kChecks),
+      : h((z + kEdgeChecks - 1) / kEdgeChecks),
         e(static_cast<int>(threadIdx.x) / h),
         i0(static_cast<int>(threadIdx.x) - e * h),
         de(kThreads / h),
@@ -1144,17 +1150,17 @@ __device__ __forceinline__ void sp_edges_a(const Smem<S>& p, const Args& a) {
   for (EdgeItems it(z); it.e < a.n_edges; it.next()) {
     const int4 te = p.etab[it.e];
     float* pl = p.plane + it.e * zp;
-    float v[kChecks];
+    float v[kEdgeChecks];
 #pragma unroll
-    for (int q = 0; q < kChecks; ++q) {
-      // past z (padding): the total of check i - z
-      const int ib = (it.i0 + q * it.h) * sz;
+    for (int q = 0; q < kEdgeChecks; ++q) {
+      // past z (padding): the total of check i0, whatever it gives
+      const int i = it.i0 + q * it.h;
+      const int ib = (q == 0 || i < z ? i : it.i0) * sz;
       const int off = ib >= te.y ? te.x + ib - zb : te.x + ib;
-      v[q] = ld(*reinterpret_cast<const S*>(p.base + off)) -
-             pl[it.i0 + q * it.h];
+      v[q] = ld(*reinterpret_cast<const S*>(p.base + off)) - pl[i];
     }
 #pragma unroll
-    for (int q = 0; q < kChecks; ++q) {
+    for (int q = 0; q < kEdgeChecks; ++q) {
       const float ph = phi(clip_phi(fabsf(v[q])));
       pl[it.i0 + q * it.h] =
           __uint_as_float((__float_as_uint(ph) & 0x7fffffffu) |
@@ -1187,8 +1193,10 @@ __device__ __forceinline__ int sp_checks(const Smem<S>& p, const Args& a) {
       for (int d = d0; d < dend; ++d) {
         const uint32_t u = __float_as_uint(pl[d * zp]);
         s = s + __uint_as_float(u & 0x7fffffffu);
-        nbits |= (u >> 31) << (d - d0);
+        nbits = shift_in_sign(nbits, static_cast<int>(u));
       }
+      // slot d0 + k at bit k
+      nbits = dend > d0 ? __brev(nbits) >> (32 - (dend - d0)) : 0u;
       px ^= nbits;
       if (d0 == 0) {
         w0 = nbits;
@@ -1216,21 +1224,21 @@ __device__ __forceinline__ void sp_edges_b(const Smem<S>& p, const Args& a) {
     const int4 te = p.etab[it.e];
     const int d = te.w;
     float* pl = p.plane + it.e * zp;
-    float rest[kChecks];
-    uint32_t sgn[kChecks];
+    float rest[kEdgeChecks];
+    uint32_t sgn[kEdgeChecks];
 #pragma unroll
-    for (int q = 0; q < kChecks; ++q) {
-      // past z: padding, from any record
-      const int c = te.z + it.i0 + q * it.h;
+    for (int q = 0; q < kEdgeChecks; ++q) {
+      // past z: padding, from check i0's record
+      const int i = it.i0 + q * it.h;
+      const int c = te.z + (q == 0 || i < z ? i : it.i0);
       const uint2 r = p.sprec[c];
       const uint32_t word =
           (kWide && d >= 32) ? p.xbits[c * n_x + (d >> 5) - 1] : r.x;
       sgn[q] = word << (31 - (d & 31));
-      rest[q] = __uint_as_float(r.y) -
-                ld(st<S>(fabsf(pl[it.i0 + q * it.h])));
+      rest[q] = __uint_as_float(r.y) - ld(st<S>(fabsf(pl[i])));
     }
 #pragma unroll
-    for (int q = 0; q < kChecks; ++q) {
+    for (int q = 0; q < kEdgeChecks; ++q) {
       pl[it.i0 + q * it.h] = with_sign(phi(clip_phi(rest[q])), sgn[q]);
     }
   }

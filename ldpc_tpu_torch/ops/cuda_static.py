@@ -160,7 +160,8 @@ def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
     entry and a block count per block row.  Sum-product has a 16-byte
     entry per block edge and per (block column, slot), an 8-byte record,
     the sign words past the first and a parity word per check, and one
-    float32 per Tanner edge (z rounded up to even a block edge).  Then the
+    float32 per Tanner edge (z rounded up to a multiple of 4 a block
+    edge).  Then the
     channel and total planes in the store."""
     _check_kind(kind)
     sw = _sign_words(plan)
@@ -170,7 +171,7 @@ def smem_bytes(plan: DecodePlan, kind: str = "min-sum",
     planes = 2 * width * plan.n
     tables = -(-4 * n_tab // 16) * 16
     if kind == "sum-product":
-        stride = plan.z + plan.z % 2       # z rounded up to even
+        stride = -(-plan.z // 4) * 4       # z rounded up to a multiple of 4
         return (tables + 16 * (_n_edges(plan) + plan.block_cols *
                                plan.dmax_vn) +
                 4 * plan.m * (2 + sw) + 4 * _n_edges(plan) * stride + planes)
