@@ -107,11 +107,28 @@ no result line:
            (c) each probe timed at the card-filling count,
            K = 1,000, beside its plain version, its bound and its
            shared-memory bound.
-13. the kernels line, the card line again, and the result line.
+13. env   the code search at the JAX env's defaults (near-earth, 3.0/3.2/
+           3.4 dB, 10 transmissions, 50 iterations, caps 48/18), each
+           candidate decoded by the fused kernel (flooding min-sum, float32
+           state, its tables uploaded, no build): (a) `random-agent --steps
+           10` through the CLI, the codec checked every step, the rewards
+           and steps/s; (b) the same 10 codes and LLRs through the kernel,
+           its plain version and ops/dynamic.py on the card: the kernel
+           equal to its plain version on every word and to ops/dynamic.py
+           on converged words; (c) EnvironmentVector of 8 envs, batched
+           against sequential, 14 steps: identical rewards, states and
+           iterations, env steps/s of each from the median vector step;
+           (d) one step at
+           num_transmissions (256, 1024, 4096) under torch.profiler
+           (profile_call: busy share, the kernel's ms); (e) a step of (a)
+           piece by piece: plan and tables, upload, kernel (CUDA events,
+           beside its bound), host read, reward fit.
+14. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
-dep_stride replay of phase 11, and the microbench script of phase 12) clears the launch counts just before it
+dep_stride replay of phase 11, the microbench script of phase 12, and the
+env paths (a), (c) and (d) of phase 13) clears the launch counts just before it
 and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
@@ -268,6 +285,22 @@ SUM_RTOL = 1e-4
 MB_ROW_K = 1000          # (c) the rows' K: the quick slope's first K
 MB_PATH = "microbench"
 MB_ARGS = ["--quick"]
+
+# Phase 13, the code search at the JAX env's defaults (near-earth, SNR
+# 3.0/3.2/3.4 dB, 10 transmissions, 50 iterations, caps 48/18): (a) the
+# random agent's steps, (c) a vector env's size and steps, (d) one deep
+# step's words a point.  Each candidate decodes through the fused kernel,
+# flooding min-sum with float32 state.
+ENV_STEPS = 10
+ENV_VECTOR = 8
+ENV_VECTOR_STEPS = 2          # (c) steps, then ENV_VECTOR_TIMED more, all
+ENV_VECTOR_TIMED = 12         # held equal; env steps/s from the median step
+ENV_DEEP_TX = (256, 1024, 4096)
+ENV_TRACES = 3                # (d) traces at most, until one holds the kernel
+ENV_KEY = ("min-sum", "float32", "flooding", False)
+ENV_PATHS = {"a": "env (a) random-agent", "c": "env (c) vector batched",
+             "c_seq": "env (c) vector sequential",
+             "d": "env (d) deep step"}
 
 # The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
 # operations over the float32 peak, which counts a fused multiply-add as 2
@@ -1544,6 +1577,221 @@ def phase_microbench(dev) -> dict:
     return {"rows": rows, "script": res}
 
 
+def _agent_actions(env, steps: int, seed: int) -> list:
+    """The random agent's actions (rl/random_agent.py) for ``steps`` steps
+    of ``env``'s shape."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        x = rng.randint(0, env.state.block_rows)
+        y = rng.randint(0, env.state.block_cols)
+        k = int(rng.choice(tuple(range(3, 8))))
+        row = np.zeros(env.z, np.int32)
+        row[rng.choice(env.z, k, replace=False)] = 1
+        out.append(np.concatenate([
+            [int(b) for b in np.binary_repr(x, env.x_bits)],
+            [int(b) for b in np.binary_repr(y, env.y_bits)], row]).astype(
+                np.int32))
+    return out
+
+
+def phase_env(dev) -> dict:
+    """The code search: (a) `random-agent`, (b) its codes and LLRs through
+    the kernel, its plain version and ops/dynamic.py, (c) a vector env
+    batched against sequential, (d) a deep step under the profiler, (e)
+    the split of a step's time."""
+    from ldpc_tpu_torch.envs import EnvironmentVector, LdpcCodeSearchEnv
+    from ldpc_tpu_torch.envs.code_search import DecodeCounts, _to_host
+    from ldpc_tpu_torch.ops.dynamic import dynamic_plan, make_dynamic_decoder
+    from ldpc_tpu_torch.sim.reward import BAD_CANDIDATE_REWARD, calc_reward
+    tag = "13env"
+    # (a) the CLI's random agent; each decoded batch is recorded, and each
+    # step's wall time (the step returns after its host read)
+    seen, step_s = [], []
+    decode_batched = LdpcCodeSearchEnv._decode_batched
+    env_step = LdpcCodeSearchEnv.step
+
+    def recording(self, code, llr):
+        seen.append((code, llr.clone()))
+        return decode_batched(self, code, llr)
+
+    def timed(self, action):
+        t0 = time.perf_counter()
+        out = env_step(self, action)
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    LdpcCodeSearchEnv._decode_batched = recording
+    LdpcCodeSearchEnv.step = timed
+    clear_launches()
+    try:
+        t0 = time.perf_counter()
+        rewards = run_cli(dev, ["random-agent", "--steps", str(ENV_STEPS)])
+        sync(dev)
+        wall_a = time.perf_counter() - t0
+    finally:
+        LdpcCodeSearchEnv._decode_batched = decode_batched
+        LdpcCodeSearchEnv.step = env_step
+    got = record_path(ENV_PATHS["a"])
+    legal = sum(r != BAD_CANDIDATE_REWARD for r in rewards)
+    step_ms = float(np.median(step_s)) * 1e3
+    log(tag, f"(a) random-agent --steps {ENV_STEPS}: rewards {rewards}; "
+        f"{legal} legal steps, codec checked every step; {wall_a:.3f} s "
+        f"with the CLI's set-up, {ENV_STEPS / wall_a:.4g} steps/s; a step "
+        f"{step_ms:.3f} ms (median; first {step_s[0] * 1e3:.3f} ms), "
+        f"{1e3 / step_ms:.4g} steps/s; launches {got}")
+    if got.get(ENV_KEY, 0) != legal or len(seen) != legal:
+        raise AssertionError(f"(a) {legal} legal steps, {len(seen)} "
+                             f"decodes, launches {got}")
+    if not all(np.isfinite(r) for r in rewards):
+        raise AssertionError(f"(a) rewards {rewards}")
+    # (b) the same codes and LLRs: kernel == plain on every word, kernel ==
+    # ops/dynamic.py on converged words; (e) a step's time, piece by piece
+    scratch = LdpcCodeSearchEnv(device=dev)
+    snr_per_word = np.repeat(scratch.snr_points, scratch.tx_counts)
+    sigma = torch.as_tensor(np.sqrt(0.5 / 10 ** (snr_per_word / 10)),
+                            dtype=torch.float32, device=dev)
+    split = collections.defaultdict(list)
+    bounds = []
+    worst = {"mismatched": 0, "mismatched_converged_dynamic": 0,
+             "mismatched_dynamic": 0, "max_abs_err": 0, "words": 0,
+             "converged": 0, "max_check_degree": 0}
+    for code, llr in seen:
+        t0 = time.perf_counter()
+        plan = DecodePlan.from_code(code)
+        tables = cuda_static.kernel_tables(plan)
+        t1 = time.perf_counter()
+        dev_tables = torch.as_tensor(tables, device=dev)
+        sync(dev)
+        t2 = time.perf_counter()
+        split["plan_and_tables_ms"].append((t1 - t0) * 1e3)
+        split["upload_ms"].append((t2 - t1) * 1e3)
+        del dev_tables
+        dec = make_static_sweep_decoder(code, MAX_ITERS,
+                                        store_dtype="float32", device=dev)
+        kern = dec(llr)
+        split["kernel_ms"].append(time_ms(lambda: dec(llr), dev, reps=5))
+        bounds.append(bound_ms(llr.shape[0], code.n, code.num_edges,
+                               kern[1], kern[2], MAX_ITERS))
+        plain = flooding_reference(llr, plan, MAX_ITERS,
+                                   store_dtype="float32")
+        res = make_dynamic_decoder(code.z, code.block_rows, code.block_cols,
+                                   48, 18, MAX_ITERS)(
+            dynamic_plan(code, 48, 18, device=dev), llr)
+        dyn = (res.hard.sum(-1, dtype=torch.int32), res.iterations,
+               res.success)
+        c = compare(kern, plain)
+        d = compare(kern, dyn)
+        worst["mismatched"] += c["mismatched"]
+        worst["mismatched_converged_dynamic"] += d["mismatched_converged"]
+        worst["mismatched_dynamic"] += d["mismatched"]
+        worst["max_abs_err"] = max(worst["max_abs_err"], c["max_abs_err"])
+        worst["words"] += llr.shape[0]
+        worst["converged"] += int(kern[2].sum())
+        worst["max_check_degree"] = max(worst["max_check_degree"],
+                                        plan.dmax_cn)
+        sync(dev)
+        t0 = time.perf_counter()
+        sigma_actual = torch.sqrt(torch.mean((llr + 1.0) ** 2, dim=-1))
+        host = _to_host(scratch._device_columns(llr, sigma, sigma_actual,
+                                                DecodeCounts(*kern)))
+        t1 = time.perf_counter()
+        stats = scratch._stats_from_host(snr_per_word, host)
+        scatter_snr, scatter_ber = stats.get_stats_v2()[:2]
+        calc_reward(scatter_snr, scatter_ber, scratch.snr_points)
+        t2 = time.perf_counter()
+        split["read_ms"].append((t1 - t0) * 1e3)
+        split["reward_fit_ms"].append((t2 - t1) * 1e3)
+    log(tag, f"(b) {len(seen)} codes, {worst['words']} words (check degree "
+        f"up to {worst['max_check_degree']}, {worst['converged']} "
+        f"converged): kernel vs plain {worst['mismatched']} mismatched "
+        "words; kernel vs ops/dynamic.py "
+        f"{worst['mismatched_converged_dynamic']} mismatched words "
+        "converged on either side, "
+        f"{worst['mismatched_dynamic']} in all")
+    if worst["mismatched"] or worst["mismatched_converged_dynamic"]:
+        raise AssertionError(f"(b) the env's route disagrees: {worst}")
+    med = {k: float(np.median(v)) for k, v in split.items()}
+    kernel_bound = float(np.median([b for b, _ in bounds]))
+    log(tag, "(e) a step of (a), median of its codes: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in med.items()) +
+        f"; the step's wall time {step_ms:.3f} ms (a's median), of which "
+        f"these sum to {sum(med.values()):.3f} ms; the kernel's bound "
+        f"{kernel_bound:.5f} ms ({bounds[0][1]}; {seen[0][1].shape[0]} "
+        "words a launch, one block a word)")
+    # (c) a vector env, batched against sequential, the same actions; each
+    # vector step ends in its host read, so the host clock times it
+    vec = {}
+    n_steps = ENV_VECTOR_STEPS + ENV_VECTOR_TIMED
+    for mode, batched in (("c", True), ("c_seq", False)):
+        env_fns = [(lambda s=s: LdpcCodeSearchEnv(seed=s, device=dev))
+                   for s in range(ENV_VECTOR)]
+        v = EnvironmentVector(env_fns, batched=batched)
+        v.reset()
+        acts = [_agent_actions(e, n_steps, 100 + k)
+                for k, e in enumerate(v.envs)]
+        clear_launches()
+        steps, secs = [], []
+        for t in range(n_steps):
+            t0 = time.perf_counter()
+            steps.append(v.step([a[t] for a in acts]))
+            secs.append(time.perf_counter() - t0)
+        launches = record_path(ENV_PATHS[mode])
+        med_s = float(np.median(secs))
+        vec[mode] = {"steps": steps, "step_s": secs, "launches": launches,
+                     "envs": v.envs, "env_steps_per_s": ENV_VECTOR / med_s}
+        log(tag, f"(c) {ENV_VECTOR} envs x {n_steps} steps, "
+            f"batched={batched}: a vector step {med_s * 1e3:.3f} ms "
+            f"(median; quartiles {np.percentile(secs, 25) * 1e3:.3f}, "
+            f"{np.percentile(secs, 75) * 1e3:.3f}), "
+            f"{vec[mode]['env_steps_per_s']:.4g} env steps/s; launches "
+            f"{launches}")
+    for (o1, r1, d1, i1), (o2, r2, d2, i2) in zip(vec["c"]["steps"],
+                                                   vec["c_seq"]["steps"]):
+        if not (np.array_equal(o1, o2) and np.array_equal(r1, r2) and
+                list(d1) == list(d2)):
+            raise AssertionError("(c) batched and sequential steps differ")
+    if any(a.state != b.state or
+           a.accumulated_iterations != b.accumulated_iterations
+           for a, b in zip(vec["c"]["envs"], vec["c_seq"]["envs"])):
+        raise AssertionError("(c) batched and sequential states differ")
+    if vec["c"]["launches"].get(ENV_KEY, 0) == 0:
+        raise AssertionError("(c) the batched vector step ran no kernel")
+    log(tag, f"(c) batched == sequential on all {n_steps} steps: rewards "
+        f"of the first {ENV_VECTOR_STEPS} "
+        f"{[s[1].tolist() for s in vec['c']['steps'][:ENV_VECTOR_STEPS]]}")
+    # (d) one deep step under the profiler
+    deep = LdpcCodeSearchEnv(num_transmissions=ENV_DEEP_TX, device=dev)
+    # profile_call steps twice (the first warms the tracer up): a new code
+    # each time, so the recorded step builds its plan and tables too.  A
+    # warmed-up trace has dropped this step's kernel launch on the H100:
+    # then the step is traced again, up to ENV_TRACES times in all
+    clear_launches()
+    for attempt in range(1, ENV_TRACES + 1):
+        actions = iter(_agent_actions(deep, 2, 6 + attempt))
+        prof = profile_call(dev, lambda: deep.step(next(actions)), tag,
+                            f"(d) one step of {sum(ENV_DEEP_TX)} words, "
+                            f"trace {attempt}")
+        if prof["measured"]:
+            break
+    launches = record_path(ENV_PATHS["d"])
+    if launches.get(ENV_KEY, 0) == 0:
+        raise AssertionError("(d) the deep step ran no kernel")
+    stats = deep.ber_stats
+    fer = {float(snr): float(stats.column("frame_errors")[
+        stats.column("snr") == snr].sum() / n)
+        for snr, n in zip(deep.snr_points, ENV_DEEP_TX)}
+    log(tag, f"(d) FER by point {fer}; iterations "
+        f"{int(stats.column('iterations').sum())}; launches {launches}")
+    return {"rewards": rewards, "steps_per_s": 1e3 / step_ms,
+            "cli_steps_per_s": ENV_STEPS / wall_a, "step_ms": step_ms,
+            "split_ms": med, "kernel_bound_ms": kernel_bound,
+            "check": worst,
+            "vector_env_steps_per_s": {
+                m: vec[m]["env_steps_per_s"] for m in vec},
+            "deep": {**prof, "fer": fer, "traces": attempt}}
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -1597,6 +1845,7 @@ def run(dev: torch.device) -> dict:
     split["giant"] = phase_giant(dev, gen)
     split["probe"] = phase_dep_stride(dev, code, main)
     mb = phase_microbench(dev)
+    env = phase_env(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -1663,7 +1912,7 @@ def run(dev: torch.device) -> dict:
     kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main, "split": split,
-            "microbench": mb}
+            "microbench": mb, "env": env}
 
 
 def main() -> int:

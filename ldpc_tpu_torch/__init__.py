@@ -4,19 +4,27 @@ It imports ``torch`` and numpy, never ``jax`` and nothing of ``ldpc_tpu``;
 sub-packages mirror ``ldpc_tpu`` so each module's counterpart is easy to
 find:
 
-  codes/   QC shift tables, the JSON code format, CCSDS near-earth, the
-           IEEE 802.11n n = 1944 family, synthetic QC codes
+  codes/   QC shift tables, the JSON code format and the reference's file
+           formats, the observation codec, CCSDS near-earth, the IEEE
+           802.11n n = 1944 family, synthetic QC codes, the zeroed-circulant
+           suite
   ops/     decode plans; the fused decode kernel (``csrc/decode.cu``), its
            plain PyTorch versions and wrapper (``ops/cuda_static.py``); the
            phase-split pair (``csrc/split.cu``, ``ops/cuda_split.py``); the
            plain-torch decoder of the ``"torch"`` engine
-           (``ops/decoder.py``); the f64 oracle
+           (``ops/decoder.py``); the dynamic-plan decoder
+           (``ops/dynamic.py``); the f64 oracle
   sim/     BPSK/AWGN channel, Monte-Carlo sweeps (``evaluate_code``, the
-           staged cascade), BER/FER statistics
-  utils/   device selection
+           staged cascade), BER/FER statistics, the code-search reward
+  envs/    the code-search env (``LdpcCodeSearchEnv``: each candidate
+           decoded by the fused kernel on the card, by ``ops/dynamic.py``
+           on the CPU) and its vector container
+  rl/      the random-search baseline
+  utils/   device selection, the bounded cache, the experiment loggers
   csrc/    CUDA sources and their nvcc + ctypes build
   scripts/ ``python -m ldpc_tpu_torch.scripts.split_ab``
-  cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe``
+  cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe|random-agent|
+           perturb``
 
 Entry points run on the card unless called with ``device="cpu"``.
 
@@ -33,4 +41,4 @@ Quick start (on the card)::
 
 __version__ = "0.2.0"
 
-__all__ = ["codes", "ops", "sim", "utils", "csrc", "scripts"]
+__all__ = ["codes", "ops", "sim", "envs", "rl", "utils", "csrc", "scripts"]

@@ -1,11 +1,14 @@
 """Command-line entry points of the port: ``python -m ldpc_tpu_torch.cli``.
 
-The counterpart of ``python -m ldpc_tpu.cli`` for three of its commands,
+The counterpart of ``python -m ldpc_tpu.cli`` for five of its commands,
 with the same arguments and defaults:
 
-  evaluate   BER/FER sweep of a code on the card
-  bench      the reference's benchmark presets (near-earth, wifi)
-  probe      deterministic epsilon/bit-flip probe (ldpcCUDA.py:677)
+  evaluate     BER/FER sweep of a code on the card
+  bench        the reference's benchmark presets (near-earth, wifi)
+  probe        deterministic epsilon/bit-flip probe (ldpcCUDA.py:677)
+  random-agent random code-search baseline (each candidate decoded by the
+               fused kernel)
+  perturb      write the zeroed-circulant robustness suite
 
 Engines: ``--engine torch`` is the counterpart of ``xla`` (plain torch
 ops), ``--engine cuda`` of ``pallas`` (the CUDA kernel: flooding or
@@ -21,6 +24,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 
@@ -47,10 +51,10 @@ def cmd_evaluate(args):
     from .sim import evaluate_code
     if args.sharded:
         raise NotImplementedError(
-            "--sharded waits for parallel/, ROADMAP.md Queue A item 9")
+            "--sharded waits for parallel/, ROADMAP.md Queue A item 7")
     if args.plot:
         raise NotImplementedError(
-            "--plot waits for analysis/, ROADMAP.md Queue A item 10")
+            "--plot waits for analysis/, ROADMAP.md Queue A item 8")
     if args.tile_b is not None and args.engine != "cuda":
         raise SystemExit("--tile-b is a kernel scheduling lever; combine it "
                          "with --engine cuda")
@@ -118,6 +122,29 @@ def cmd_probe(args):
         max_iters=args.iterations, device=_device())
     out = {"errors_uncoded": unc, "errors_decoded": dec,
            "iterations": iters, "success": ok}
+    print(json.dumps(out))
+    return out
+
+
+def cmd_random_agent(args):
+    """The random-search baseline; prints and returns its rewards."""
+    from .envs import LdpcCodeSearchEnv
+    from .rl import run_random_agent
+    env = LdpcCodeSearchEnv(code=_get_code(args.code),
+                            num_transmissions=args.transmissions,
+                            seed=args.seed, device=_device())
+    rewards, env = run_random_agent(env, num_steps=args.steps,
+                                    seed=args.seed)
+    print(json.dumps({"rewards": rewards}))
+    return rewards
+
+
+def cmd_perturb(args):
+    """Writes the zeroed-circulant suite; prints and returns its summary."""
+    from .codes import write_suite
+    code = _get_code(args.code)
+    names = write_suite(code, args.out)
+    out = {"written": len(names), "dir": args.out}
     print(json.dumps(out))
     return out
 
@@ -192,6 +219,19 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--flips", type=int, nargs="*", default=[0])
     pr.add_argument("--iterations", type=int, default=50)
     pr.set_defaults(fn=cmd_probe)
+
+    ra = sub.add_parser("random-agent", help="random-search baseline")
+    ra.add_argument("--code", default="near-earth")
+    ra.add_argument("--steps", type=int, default=10)
+    ra.add_argument("--transmissions", type=int, default=10)
+    ra.add_argument("--seed", type=int, default=42)
+    ra.set_defaults(fn=cmd_random_agent)
+
+    pe = sub.add_parser("perturb", help="zeroed-circulant suite")
+    pe.add_argument("--code", default="near-earth")
+    pe.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                  "ldpc_tpu_test_matrices"))
+    pe.set_defaults(fn=cmd_perturb)
     return p
 
 

@@ -1,12 +1,23 @@
-"""QC code structures, the JSON code format, CCSDS near-earth, the IEEE
-802.11n codes and synthetic QC codes."""
+"""QC code structures, the JSON code format and the reference's file
+formats, the observation codec, CCSDS near-earth, the IEEE 802.11n codes,
+synthetic QC codes and the zeroed-circulant suite."""
 
 from .ccsds import near_earth_code
-from .io import code_from_dict, code_to_dict, load_code_json, save_code_json
+from .codec import compress, observation_bytes, uncompress
+from .io import (bits_to_hex, code_from_dict, code_hex_name, code_to_dict,
+                 hex_to_bits, load_code_instance, load_code_json,
+                 read_dense_generator, read_qc_generator_rows,
+                 read_qc_parity, save_code_instance, save_code_json)
+from .perturb import write_suite, zero_circulant, zeroed_circulant_suite
 from .qc import QCCode
 from .synthetic import synthetic_qc_code
 from .wifi import wifi_code, wifi_rates
 
 __all__ = ["QCCode", "near_earth_code", "wifi_code", "wifi_rates",
            "code_from_dict", "code_to_dict", "load_code_json",
-           "save_code_json", "synthetic_qc_code"]
+           "save_code_json", "synthetic_qc_code", "compress", "uncompress",
+           "observation_bytes", "hex_to_bits", "bits_to_hex",
+           "code_hex_name", "read_qc_parity", "read_qc_generator_rows",
+           "read_dense_generator", "save_code_instance",
+           "load_code_instance", "zero_circulant", "zeroed_circulant_suite",
+           "write_suite"]

@@ -153,6 +153,40 @@ class QCCode:
         )
         return QCCode(z=z, shifts=shifts, name=name, message_size=message_size)
 
+    @staticmethod
+    def from_dense(h: np.ndarray, z: int, name: str = "",
+                   message_size: int | None = None) -> "QCCode":
+        """Recover the QC structure from a dense H; verifies circulant blocks."""
+        h = np.asarray(h)
+        m, n = h.shape
+        if m % z or n % z:
+            raise ValueError("dense shape not a multiple of z")
+        mb_n, nb_n = m // z, n // z
+        rows = np.zeros((mb_n, nb_n, z), dtype=np.int32)
+        for mb in range(mb_n):
+            for nb in range(nb_n):
+                rows[mb, nb] = h[mb * z, nb * z:(nb + 1) * z]
+        code = QCCode.from_first_rows(rows, name=name, message_size=message_size)
+        if not np.array_equal(code.to_dense(dtype=h.dtype), h):
+            raise ValueError("matrix is not block-circulant with the given z")
+        return code
+
+    def replace_block(self, mb: int, nb: int, first_row) -> "QCCode":
+        """Functionally replace one circulant (the env's action primitive).
+
+        Mirrors ``LdpcEnv.replaceCirculant`` (``ldpc_env.py:293-317``) but is
+        pure: returns a new QCCode.  ``first_row`` is either a binary vector of
+        length Z or an iterable of hot shift indices.
+        """
+        fr = np.asarray(first_row)
+        if fr.ndim == 1 and fr.shape[0] == self.z and set(np.unique(fr)) <= {0, 1}:
+            new_shifts = tuple(int(s) for s in np.flatnonzero(fr))
+        else:
+            new_shifts = tuple(int(s) for s in fr)
+        rows = [list(r) for r in self.shifts]
+        rows[mb][nb] = new_shifts
+        return dataclasses.replace(self, shifts=tuple(tuple(r) for r in rows))
+
 
 def edges_by_block_row(code: QCCode) -> list[list[tuple[int, int]]]:
     """Per block row: list of (block_col, shift) edges, in column-major order."""

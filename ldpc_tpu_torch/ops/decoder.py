@@ -30,12 +30,12 @@ are on the input's device.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 from ..codes.qc import QCCode
+from ..utils.cache import BoundedCache
 from ..utils.device import resolve_device
 from .plan import DecodePlan, frame_indices
 
@@ -197,9 +197,14 @@ def make_decoder(plan: DecodePlan, max_iters: int = 50, *,
     return _Decoder(plan, int(max_iters), kind, a, b, dtype, bool(keep_soft))
 
 
-@functools.lru_cache(maxsize=64)
+_PLANS = BoundedCache(64)     # a code search mutates the code every step
+
+
 def _plan_for_code(code: QCCode) -> DecodePlan:
-    return DecodePlan.from_code(code)
+    plan = _PLANS.get(code)
+    if plan is None:
+        plan = _PLANS[code] = DecodePlan.from_code(code)
+    return plan
 
 
 def decoder_for_code(code: QCCode, max_iters: int = 50, **kw) -> _Decoder:

@@ -87,8 +87,7 @@ def _refuse_later_options(*, engine, store_dtype, schedule, tile_b,
                          "port's engines run one word per block")
     if sort_words:
         raise NotImplementedError(
-            "sort_words waits in ROADMAP.md Queue A item 5 (the rest of "
-            "sim/evaluate.py)")
+            "sort_words waits in ROADMAP.md Queue A item 2")
     if engine == "torch" and store_dtype is not None:
         raise ValueError("store_dtype is a cuda-engine option (the torch "
                          "engine's compute dtype is `dtype`)")
@@ -329,7 +328,7 @@ def evaluate_code(code: QCCode,
     if codewords == "random":
         raise NotImplementedError(
             "codewords='random' needs codes/encode.py, ROADMAP.md Queue A "
-            "item 5")
+            "item 1")
     if codewords != "zero":
         raise ValueError(f"unknown codewords mode: {codewords!r}")
     dev = resolve_device(device)

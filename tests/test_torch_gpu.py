@@ -453,3 +453,128 @@ def test_phi_sass_counts_phi(cuda):
     assert res["instructions"] > 0 and res["flops"] > 0
     assert res["kernel_instructions"]["phi_only"] > \
         res["kernel_instructions"]["copy_only"]
+
+
+# --- the code search on the card: each candidate through the fused kernel --
+
+def _env_trouble_codes():
+    """Codes a search makes that the sweep never feeds the kernel (see
+    tests/test_torch_dynamic.py): a check degree above 32, a block column
+    of degree 0, a block row at the cap, circulants of weight 3-7."""
+    ne, w = near_earth_code(), wifi_code(1944, 5 / 6)
+    return [ne.replace_block(0, 3, (5, 77, 130, 201, 300, 402, 480)),
+            ne.replace_block(0, 5, ()).replace_block(1, 5, ()),
+            w.replace_block(0, 12, (2, 20, 33, 71)),
+            w.replace_block(1, 2, (1, 7, 22)).replace_block(
+                3, 6, (0, 11, 23, 40, 52, 61, 79))]
+
+
+ENV_CODES = _env_trouble_codes()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("idx", range(len(ENV_CODES)))
+def test_env_route_matches_plain_version_and_dynamic(cuda, idx, kind):
+    """The env's route on the card (the kernel, float32 state, raw
+    samples) equals its plain version on every word and the dynamic
+    decoder on converged words (sum-product: the plain version only)."""
+    from ldpc_tpu_torch.envs import LdpcCodeSearchEnv
+    from ldpc_tpu_torch.ops.dynamic import dynamic_plan, make_dynamic_decoder
+    code = ENV_CODES[idx]
+    env = LdpcCodeSearchEnv(code=code, device=cuda, decoder_kind=kind)
+    # finite: the dynamic decoder, as the JAX one, does not sanitise
+    llr = _finite_llr(code.n, (2.6, 3.2, 4.0), 16, seed=idx, device=cuda)
+    key = (kind, "float32", "flooding", False)
+    before = cuda_static.launches[key]
+    got = env.counts_fn(code, 30)(llr)
+    assert cuda_static.launches[key] == before + 1
+    want = flooding_reference(llr, DecodePlan.from_code(code), 30,
+                              kind=kind, store_dtype="float32")
+    for g, w in zip((got.errors, got.iterations, got.success), want):
+        assert torch.equal(g, w)
+    if kind == "sum-product":
+        return
+    res = make_dynamic_decoder(code.z, code.block_rows, code.block_cols,
+                               48, 18, 30, kind=kind)(
+        dynamic_plan(code, 48, 18, device=cuda), llr)
+    conv = got.success | res.success
+    assert torch.equal(got.success[conv], res.success[conv])
+    assert torch.equal(got.errors[conv],
+                       res.hard.sum(-1, dtype=torch.int32)[conv])
+    assert torch.equal(got.iterations[conv], res.iterations[conv])
+    assert bool(conv.any())
+
+
+def test_env_steps_decode_each_code_with_no_rebuild(cuda):
+    from ldpc_tpu_torch.envs import LdpcCodeSearchEnv
+    from ldpc_tpu_torch.rl import run_random_agent
+    env = LdpcCodeSearchEnv(device=cuda)
+    key = ("min-sum", "float32", "flooding", False)
+    before = cuda_static.launches[key]
+    rewards, env = run_random_agent(env, num_steps=4, seed=42)
+    lib = cuda_static._LIB
+    assert lib is not None and len(rewards) == 4
+    legal = sum(r != env.reward_for_illegal_action for r in rewards)
+    assert cuda_static.launches[key] - before == legal
+    run_random_agent(env, num_steps=2, seed=43)
+    assert cuda_static._LIB is lib
+
+
+@pytest.mark.parametrize("phase1", [2, 6])
+def test_env_staged_equals_single_pass_on_card(cuda, phase1):
+    from ldpc_tpu_torch.envs import LdpcCodeSearchEnv
+    kw = dict(code=wifi_code(), snr_points=(2.0, 3.4),
+              num_transmissions=(32, 224), num_iterations=20, seed=5,
+              device=cuda)
+    plain = LdpcCodeSearchEnv(**kw)
+    staged = LdpcCodeSearchEnv(phase1_iterations=phase1, **kw)
+    row = np.zeros(plain.z, np.int32)
+    row[[1, 9, 30]] = 1
+    a = np.concatenate([np.zeros(plain.x_bits + plain.y_bits, np.int32),
+                        row])
+    _, r0, _, i0 = plain.step(a)
+    _, r1, _, i1 = staged.step(a)
+    assert r0 == r1
+    assert i0["accumulated_iterations"] == i1["accumulated_iterations"]
+    for col in ("errors_decoded", "iterations", "success"):
+        assert np.array_equal(plain.ber_stats.column(col),
+                              staged.ber_stats.column(col))
+
+
+def test_env_vector_batched_equals_sequential_on_card(cuda):
+    from ldpc_tpu_torch.envs import EnvironmentVector, LdpcCodeSearchEnv
+
+    def fns():
+        return [(lambda s=s: LdpcCodeSearchEnv(seed=s, device=cuda))
+                for s in range(4)]
+
+    seq = EnvironmentVector(fns(), batched=False)
+    bat = EnvironmentVector(fns(), batched=True)
+    rng = np.random.RandomState(0)
+    env0 = seq.envs[0]
+    for _ in range(2):
+        actions = []
+        for _ in range(4):
+            row = np.zeros(env0.z, np.int32)
+            row[rng.choice(env0.z, rng.randint(1, 8), replace=False)] = 1
+            actions.append(np.concatenate(
+                [[rng.randint(2)], [int(b) for b in np.binary_repr(
+                    rng.randint(16), 4)], row]).astype(np.int32))
+        o1, r1, d1, i1 = seq.step(actions)
+        o2, r2, d2, i2 = bat.step(actions)
+        assert np.array_equal(o1, o2) and np.array_equal(r1, r2)
+        assert list(d1) == list(d2)
+        for es, eb in zip(seq.envs, bat.envs):
+            assert es.state == eb.state
+            assert es.accumulated_iterations == eb.accumulated_iterations
+
+
+def test_env_raises_where_the_kernel_refuses_a_candidate(cuda):
+    from ldpc_tpu_torch.codes import synthetic_qc_code
+    from ldpc_tpu_torch.envs import LdpcCodeSearchEnv
+    code = synthetic_qc_code(2048, 8, 24)
+    env = LdpcCodeSearchEnv(code=code, num_transmissions=1, device=cuda)
+    a = np.zeros(env.action_bits, np.int32)
+    a[env.x_bits + env.y_bits + 7] = 1
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        env.step(a)

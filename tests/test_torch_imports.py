@@ -92,7 +92,13 @@ def test_port_and_chip_smoke_import_without_jax():
               "ldpc_tpu_torch.cli", "ldpc_tpu_torch.ops.microbench",
               "ldpc_tpu_torch.utils.profiling",
               "ldpc_tpu_torch.scripts.kernel_microbench",
-              "ldpc_tpu_torch.scripts.phi_sass"):
+              "ldpc_tpu_torch.scripts.phi_sass",
+              "ldpc_tpu_torch.ops.dynamic", "ldpc_tpu_torch.codes.codec",
+              "ldpc_tpu_torch.codes.io", "ldpc_tpu_torch.codes.perturb",
+              "ldpc_tpu_torch.sim.reward", "ldpc_tpu_torch.envs.spaces",
+              "ldpc_tpu_torch.envs.code_search",
+              "ldpc_tpu_torch.envs.vector", "ldpc_tpu_torch.rl.random_agent",
+              "ldpc_tpu_torch.utils.cache", "ldpc_tpu_torch.utils.logging"):
         assert m in res["modules"]
 
 
@@ -129,6 +135,26 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: microbench.input_tile(1, 512, torch.float32),
              lambda: device_roofline(),
              lambda: ThroughputTimer()]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_code_search_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.delenv("LDPC_TPU_PLATFORM", raising=False)
+    if torch.cuda.is_available():
+        return
+    from ldpc_tpu_torch.envs import EnvironmentVector, LdpcCodeSearchEnv
+    from ldpc_tpu_torch.ops.dynamic import dynamic_plan
+    from ldpc_tpu_torch.rl import run_random_agent
+    wifi = wifi_code()
+    calls = [lambda: LdpcCodeSearchEnv(),
+             lambda: LdpcCodeSearchEnv(code=wifi, num_transmissions=2),
+             lambda: EnvironmentVector(2, code=wifi),
+             lambda: dynamic_plan(wifi),
+             lambda: run_random_agent(num_steps=1),
+             lambda: cli.main(["random-agent", "--code", "wifi", "--steps",
+                               "1"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
