@@ -123,12 +123,29 @@ no result line:
            (profile_call: busy share, the kernel's ms); (e) a step of (a)
            piece by piece: plan and tables, upload, kernel (CUDA events,
            beside its bound), host read, reward fit.
-14. the kernels line, the card line again, and the result line.
+14. trainer the PPO trainer at full width (ActorCriticConfig's defaults:
+           2,048 observation bytes, 2 x 16 blocks, z = 511, 15 hot bits) on
+           the env's defaults, each candidate decoded by the fused kernel
+           (flooding min-sum, float32 state): (a) `cli train --num_envs 2
+           --steps 16 --epochs 3` (80/80 update iterations), then 2 epochs
+           and a `--resume` to 3: steps.tsv equal byte for byte, and B1
+           launched once a legal env step; (b) the first epoch's 32
+           candidates, their codes and LLRs, through the kernel and its
+           plain version: every word equal; (c) the trained policy on the
+           card against the same weights on the CPU: evaluate_actions
+           within the CPU tests' tolerance, mode equal, one update step
+           within tolerance; (d) the same training with batched vector
+           steps (steps.tsv equal to (a)'s): env steps/s of each, sampling
+           ms a step, env step ms, update ms an epoch; one sampling step
+           and one iteration of each update under torch.profiler
+           (profile_call: device events, busy share).
+15. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
-dep_stride replay of phase 11, the microbench script of phase 12, and the
-env paths (a), (c) and (d) of phase 13) clears the launch counts just before it
+dep_stride replay of phase 11, the microbench script of phase 12, the
+env paths (a), (c) and (d) of phase 13, and the trainer's runs (a) and (d)
+of phase 14) clears the launch counts just before it
 and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
@@ -136,7 +153,9 @@ it no time.  Launches that compare a kernel with its plain version, or time
 it, are counted on no path.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
-no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/).
+no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/) and,
+in phase 14, the trainer's logs and checkpoints under a temporary
+directory that it removes.
 """
 
 from __future__ import annotations
@@ -301,6 +320,24 @@ ENV_KEY = ("min-sum", "float32", "flooding", False)
 ENV_PATHS = {"a": "env (a) random-agent", "c": "env (c) vector batched",
              "c_seq": "env (c) vector sequential",
              "d": "env (d) deep step"}
+
+# Phase 14, the PPO trainer at full width (ActorCriticConfig's defaults:
+# 2,048 observation bytes, 64 hidden, 2 x 16 blocks, z = 511, 15 hot bits)
+# on the env's defaults, through `cli train`: 2 envs, 16 steps an epoch, 3
+# epochs, the default 80/80 update iterations; then 2 epochs resumed to 3.
+TRAIN_ENVS = 2
+TRAIN_STEPS = 16
+TRAIN_EPOCHS = 3
+TRAIN_SPLIT = 2
+TRAIN_PATHS = {"a": "trainer (a) cli train", "a_resume":
+               "trainer (a) split and resumed", "d": "trainer (d) batched"}
+# (c) the CPU tests' tolerances (tests/test_torch_rl_model.py,
+# tests/test_torch_ppo.py): log-probs and entropies rtol 1e-5, atol 1e-4;
+# an update's extras 1e-5 (relative above 1); its parameters 1e-5, but
+# for the rows of a first-layer unit tanh holds in its flat tail on every
+# row (|a| >= 7.5, < 9.1 on some), which may step by up to lr either side
+POLICY_RTOL, POLICY_ATOL = 1e-5, 1e-4
+EXTRAS_ATOL = PARAM_ATOL = 1e-5
 
 # The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
 # operations over the float32 peak, which counts a fused multiply-add as 2
@@ -697,9 +734,11 @@ def profile_call(dev, fn, tag: str, label: str) -> dict:
         prof.step()
     by_name: dict[str, list] = {}
     for e in prof.events():
-        # the step's annotation spans the step on the device's timeline too
+        # annotations (the step's, the optimiser's) span their kernels on
+        # the device's timeline too: count kernels and copies only
         if (e.device_type == DeviceType.CUDA and
-                not e.name.startswith("ProfilerStep")):
+                not getattr(e, "is_user_annotation", False) and
+                not e.name.startswith(("ProfilerStep", "Optimizer."))):
             row = by_name.setdefault(e.name, [0, 0.0])
             row[0] += 1
             row[1] += e.time_range.elapsed_us()
@@ -707,6 +746,7 @@ def profile_call(dev, fn, tag: str, label: str) -> dict:
                if OUR_KERNELS.search(name))
     busy = sum(t for _, t in by_name.values())
     res = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "device_events": sum(c for c, _ in by_name.values()),
            "kernel_ms": sum(t for name, (_, t) in by_name.items()
                             if OUR_KERNELS.search(name)) / 1e3,
            "launches_seen": seen, "launches_counted": counted,
@@ -1792,6 +1832,309 @@ def phase_env(dev) -> dict:
             "deep": {**prof, "fer": fer, "traces": attempt}}
 
 
+def _train_run(dev, data_dir, epochs: int, resume: bool = False):
+    """``cli train`` with phase 14's arguments; returns (actor, critic,
+    logger) and its steps.tsv."""
+    import pathlib
+    argv = ["train", "--num_envs", str(TRAIN_ENVS), "--steps",
+            str(TRAIN_STEPS), "--seed", "30", "--epochs", str(epochs),
+            "--data_dir", str(data_dir)] + (["--resume"] if resume else [])
+    out = run_cli(dev, argv)
+    steps = pathlib.Path(data_dir) / "ppo" / "ppo_s30" / "steps.tsv"
+    return out, steps.read_bytes()
+
+
+def _saturated_rows(weight: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
+    """A first layer's units whose gradient sits at rounding level: |a| >=
+    7.5 on every row and < 9.1 on some (tests/test_torch_ppo.py)."""
+    a = (obs @ weight.t()).abs()
+    return (a >= 7.5).all(0) & (a.min(0).values < 9.1)
+
+
+def _policy_check(dev, actor, critic, obs_np) -> dict:
+    """The trained policy on the card against the same weights on the CPU:
+    evaluate_actions, mode, and one update step."""
+    from ldpc_tpu_torch.rl import (Actor, Critic, PPOConfig, env_generators,
+                                   evaluate_actions, make_update_fns,
+                                   sample_step)
+    cfg = actor.cfg
+    nets = {"cuda": (actor, critic)}
+    cpu_a, cpu_c = Actor(cfg), Critic(cfg)
+    cpu_a.load_state_dict({k: v.cpu() for k, v in actor.state_dict().items()})
+    cpu_c.load_state_dict({k: v.cpu()
+                           for k, v in critic.state_dict().items()})
+    nets["cpu"] = (cpu_a, cpu_c)
+    b = obs_np.shape[0]
+    obs = torch.tensor(obs_np)
+    loose = {}
+    for name, lr, layer in (("actor.encoder.dense.0", 3e-4,
+                             cpu_a.encoder.dense[0]),
+                            ("critic.mlp.dense.0", 1e-3,
+                             cpu_c.mlp.dense[0])):
+        rows = _saturated_rows(layer.weight.detach(), obs)
+        loose[name + ".weight"] = loose[name + ".bias"] = (rows, lr)
+    rng = np.random.default_rng(SEED)
+    act = sample_step(cfg, actor, critic, obs.to(dev),
+                      env_generators(SEED, b, dev))[0].cpu()
+    adv = torch.tensor(rng.standard_normal(b).astype(np.float32))
+    ret = torch.tensor(rng.standard_normal(b).astype(np.float32))
+    res = {}
+    for side, (a, c) in nets.items():
+        d = torch.device(dev if side == "cuda" else "cpu")
+        o, ac = obs.to(d), act.to(d)
+        ev = evaluate_actions(cfg, a, o, ac)
+        mode = sample_step(cfg, a, c, o, deterministic=True)[0].cpu()
+        logp_old = ev["logp"].detach()
+        pi_opt, vf_opt, pi_up, v_up = make_update_fns(cfg, PPOConfig())
+        ex = pi_up(a, pi_opt(a.parameters()), o, ac, adv.to(d), logp_old)
+        ex["loss_v"] = v_up(c, vf_opt(c.parameters()), o, ret.to(d))
+        res[side] = {"ev": {k: v.detach().cpu() for k, v in ev.items()},
+                     "mode": mode,
+                     "extras": {k: float(v) for k, v in ex.items()},
+                     "params": {**{"actor." + k: v.detach().cpu()
+                                   for k, v in a.state_dict().items()},
+                                **{"critic." + k: v.detach().cpu()
+                                   for k, v in c.state_dict().items()}}}
+    g, w = res["cuda"], res["cpu"]
+    ev_err = max(float(((g["ev"][k] - w["ev"][k]).abs() - POLICY_RTOL *
+                        w["ev"][k].abs()).max()) for k in w["ev"])
+    mode_equal = torch.equal(g["mode"], w["mode"])
+    # relative above 1: the value loss on raw observation bytes is O(10)
+    ex_err = {k: abs(g["extras"][k] - w["extras"][k]) / max(
+        1.0, abs(w["extras"][k])) for k in w["extras"]}
+    param_err, wide = 0.0, 0
+    for k, v in w["params"].items():
+        diff = (g["params"][k] - v).abs()
+        tol = torch.full(diff.shape[:1], PARAM_ATOL)
+        if k in loose:
+            rows, lr = loose[k]
+            tol[rows] = lr
+            wide += int(rows.sum())
+        tol = tol.reshape((-1,) + (1,) * (diff.ndim - 1))
+        param_err = max(param_err, float((diff - tol).max()))
+    out = {"words": b, "evaluate_excess": ev_err, "mode_equal": mode_equal,
+           "extras_err": ex_err, "extras": w["extras"],
+           "param_excess": param_err, "saturated_units": wide // 2}
+    if not (ev_err <= POLICY_ATOL and mode_equal and param_err <= 0.0
+            and max(ex_err.values()) <= EXTRAS_ATOL):
+        raise AssertionError(f"(c) the policy on the card and on the CPU "
+                             f"differ: {out}")
+    return out
+
+
+def phase_trainer(dev) -> dict:
+    """The PPO trainer: (a) `cli train` at full width, and 2 epochs resumed
+    to 3, byte for byte; (b) the first epoch's candidates through the
+    kernel and its plain version; (c) the policy on the card against the
+    CPU; (d) env steps/s batched and sequential, and their split."""
+    import copy
+    import functools
+    import importlib
+    import tempfile
+    from ldpc_tpu_torch.envs import EnvironmentVector, LdpcCodeSearchEnv
+    from ldpc_tpu_torch.rl import (PPOConfig, env_generators,
+                                   evaluate_actions, make_update_fns,
+                                   sample_step)
+    from ldpc_tpu_torch.sim.reward import BAD_CANDIDATE_REWARD
+    ppo_mod = importlib.import_module("ldpc_tpu_torch.rl.ppo")
+    train_mod = importlib.import_module("ldpc_tpu_torch.rl.train")
+    tag = "14train"
+    seen, times = [], collections.defaultdict(list)
+    orig = {"decode": LdpcCodeSearchEnv._decode_batched,
+            "vstep": EnvironmentVector.step,
+            "sample": ppo_mod.sample_step,
+            "fns": ppo_mod.make_update_fns,
+            "dump": ppo_mod.EpochLogger.dump_tabular,
+            "ppo": train_mod.ppo}
+
+    def recording(self, code, llr):
+        seen.append((code, llr.clone()))
+        return orig["decode"](self, code, llr)
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync(dev)
+            times[name].append((t0, time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    def update_fns(*a, **k):
+        pi_opt, vf_opt, pi_up, v_up = orig["fns"](*a, **k)
+        return (pi_opt, vf_opt, timed("pi_update", pi_up),
+                timed("v_update", v_up))
+
+    def dump_times(self):
+        times["epoch_end"].append(time.perf_counter())
+        return orig["dump"](self)
+
+    def instrumented(run):
+        """``run()`` with the env step, the sampling, the updates and each
+        epoch's end timed (each synchronised: the host reads each result
+        right after anyway)."""
+        times.clear()
+        LdpcCodeSearchEnv._decode_batched = recording
+        EnvironmentVector.step = timed("env_step", orig["vstep"])
+        ppo_mod.sample_step = timed("sample", orig["sample"])
+        ppo_mod.make_update_fns = update_fns
+        ppo_mod.EpochLogger.dump_tabular = dump_times
+        try:
+            t0 = time.perf_counter()
+            out = run()
+            wall = time.perf_counter() - t0
+        finally:
+            LdpcCodeSearchEnv._decode_batched = orig["decode"]
+            EnvironmentVector.step = orig["vstep"]
+            ppo_mod.sample_step = orig["sample"]
+            ppo_mod.make_update_fns = orig["fns"]
+            ppo_mod.EpochLogger.dump_tabular = orig["dump"]
+        return out, wall, {k: list(v) for k, v in times.items()}
+
+    envs, steps = TRAIN_ENVS, TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) cli train, sequential vector steps (the CLI's default)
+        clear_launches()
+        ((actor, critic, _), tsv), wall, t_seq = instrumented(
+            lambda: _train_run(dev, f"{tmp}/full", TRAIN_EPOCHS))
+        got = record_path(TRAIN_PATHS["a"])
+        rows = [r.split(b"\t") for r in tsv.splitlines()[1:]]
+        legal = sum(float(r[3]) != BAD_CANDIDATE_REWARD for r in rows)
+        log(tag, f"(a) cli train --num_envs {envs} --steps {steps} "
+            f"--epochs {TRAIN_EPOCHS}: {len(rows)} env steps ({legal} legal), "
+            f"{wall:.3f} s with set-up; rewards of epoch 0 "
+            f"{[round(float(r[3]), 4) for r in rows[:4]]}...; launches {got}")
+        if len(rows) != envs * steps * TRAIN_EPOCHS:
+            raise AssertionError(f"(a) {len(rows)} rows in steps.tsv")
+        if got.get(ENV_KEY, 0) == 0 or got.get(ENV_KEY, 0) != legal:
+            raise AssertionError(f"(a) {legal} legal steps, launches {got}")
+        first = seen[:envs * steps]
+        # the same run in two pieces, the second resumed from a checkpoint
+        clear_launches()
+        _train_run(dev, f"{tmp}/split", TRAIN_SPLIT)
+        _, split = _train_run(dev, f"{tmp}/split", TRAIN_EPOCHS, resume=True)
+        record_path(TRAIN_PATHS["a_resume"])
+        if split != tsv:
+            raise AssertionError("(a) the resumed run's steps.tsv differs "
+                                 "from the uninterrupted run's")
+        log(tag, f"(a) {TRAIN_SPLIT} epochs resumed to {TRAIN_EPOCHS}: "
+            f"steps.tsv equal byte for byte ({len(tsv)} bytes)")
+        # (d) the same run with batched vector steps
+        train_mod.ppo = functools.partial(orig["ppo"], env_batched=True)
+        clear_launches()
+        try:
+            (_, tsv_b), wall_b, t_bat = instrumented(
+                lambda: _train_run(dev, f"{tmp}/batched", TRAIN_EPOCHS))
+        finally:
+            train_mod.ppo = orig["ppo"]
+        got_b = record_path(TRAIN_PATHS["d"])
+        if tsv_b != tsv or got_b.get(ENV_KEY, 0) != legal:
+            raise AssertionError(f"(d) batched steps.tsv equal: "
+                                 f"{tsv_b == tsv}; launches {got_b}")
+        obs_np = np.stack([np.frombuffer(bytes.fromhex(r[-1].decode()),
+                                         np.uint8) for r in rows[:envs * steps]
+                           ]).astype(np.float32)
+    # (b) the first epoch's candidates, kernel against its plain version
+    worst = {"mismatched": 0, "max_abs_err": 0, "words": 0, "converged": 0,
+             "max_check_degree": 0}
+    for code, llr in first:
+        dec = make_static_sweep_decoder(code, MAX_ITERS,
+                                        store_dtype="float32", device=dev)
+        kern = dec(llr)
+        plan = DecodePlan.from_code(code)
+        c = compare(kern, flooding_reference(llr, plan, MAX_ITERS,
+                                             store_dtype="float32"))
+        worst["mismatched"] += c["mismatched"]
+        worst["max_abs_err"] = max(worst["max_abs_err"], c["max_abs_err"])
+        worst["words"] += llr.shape[0]
+        worst["converged"] += int(kern[2].sum())
+        worst["max_check_degree"] = max(worst["max_check_degree"],
+                                        plan.dmax_cn)
+    log(tag, f"(b) epoch 0's {len(first)} candidates, {worst['words']} "
+        f"words (check degree up to {worst['max_check_degree']}, "
+        f"{worst['converged']} converged): kernel vs plain "
+        f"{worst['mismatched']} mismatched words")
+    if worst["mismatched"] or not first:
+        raise AssertionError(f"(b) the trainer's decodes disagree: {worst}")
+    # (c) the trained policy, card against CPU
+    pol = _policy_check(dev, actor, critic, obs_np)
+    ex_err = {k: float(f"{v:.3g}") for k, v in pol["extras_err"].items()}
+    log(tag, f"(c) {pol['words']} observations of epoch 0: evaluate_actions "
+        f"within rtol {POLICY_RTOL} + {pol['evaluate_excess']:.3g} (atol "
+        f"{POLICY_ATOL}), mode equal {pol['mode_equal']}; one update: "
+        f"extras (CPU) {pol['extras']}, apart by {ex_err} (relative above 1; tolerance {EXTRAS_ATOL}); parameters within "
+        f"their tolerance, largest excess {pol['param_excess']:.3g} "
+        f"({pol['saturated_units']} saturated first-layer units at lr)")
+    # (d) one sampling step and one iteration of each update of the
+    # trained nets under the profiler: device events and busy share
+    cfg = actor.cfg
+    obs_t = torch.tensor(obs_np, device=dev)
+    gens = env_generators(SEED, envs, dev)
+    a2, c2 = copy.deepcopy(actor), copy.deepcopy(critic)
+    act_t = sample_step(cfg, a2, c2, obs_t, env_generators(
+        SEED, obs_t.shape[0], dev))[0]
+    logp_t = evaluate_actions(cfg, a2, obs_t, act_t)["logp"].detach()
+    adv_t = torch.linspace(-1, 1, obs_t.shape[0], device=dev)
+    pi_opt, vf_opt, pi_up, v_up = make_update_fns(cfg, PPOConfig())
+    pi_opt, vf_opt = pi_opt(a2.parameters()), vf_opt(c2.parameters())
+    profiled = {
+        "sample": profile_call(
+            dev, lambda: sample_step(cfg, actor, critic, obs_t[:envs], gens),
+            tag, f"(d) one sampling step, {envs} envs"),
+        "pi_update": profile_call(
+            dev, lambda: float(pi_up(a2, pi_opt, obs_t, act_t, adv_t,
+                                     logp_t)["kl"]), tag,
+            f"(d) one policy update iteration, {obs_t.shape[0]} steps"),
+        "v_update": profile_call(
+            dev, lambda: float(v_up(c2, vf_opt, obs_t, adv_t)), tag,
+            f"(d) one value update iteration, {obs_t.shape[0]} steps")}
+    for name, p in profiled.items():
+        log(tag, f"(d) {name}: {p['device_events']} device events, "
+            f"{p['wall_ms']:.3f} ms wall, device busy {p['busy_ms']:.3f} ms")
+    # (d) the measurements: each epoch after the first (which warms up)
+    # from the end of the one before to its own end, split by the timed
+    # calls that started in it; medians over those epochs
+    meas = {}
+    for mode, t, w in (("sequential", t_seq, wall), ("batched", t_bat,
+                                                      wall_b)):
+        ends = t["epoch_end"]
+        split = collections.defaultdict(list)
+        for lo, hi in zip(ends[:-1], ends[1:]):
+            split["epoch"].append(hi - lo)
+            for name in ("sample", "env_step", "pi_update", "v_update"):
+                calls = [d for t0, d in t[name] if lo < t0 <= hi]
+                split[name].append(sum(calls))
+                split[name + "_calls"].append(len(calls))
+        m = {k: float(np.median(v)) for k, v in split.items()}
+        roll = m["sample"] + m["env_step"]
+        meas[mode] = {
+            "env_steps_per_s": envs * steps / m["epoch"],
+            "rollout_env_steps_per_s": envs * steps / roll,
+            "sample_ms_per_step": m["sample"] / steps * 1e3,
+            "env_step_ms_per_step": m["env_step"] / steps * 1e3,
+            "pi_update_ms_per_epoch": m["pi_update"] * 1e3,
+            "pi_iterations": m["pi_update_calls"],
+            "v_update_ms_per_epoch": m["v_update"] * 1e3,
+            "rest_ms_per_epoch": (m["epoch"] - roll - m["pi_update"] -
+                                  m["v_update"]) * 1e3,
+            "epoch_s": m["epoch"], "wall_s": w}
+        r = meas[mode]
+        log(tag, f"(d) {mode}: {r['env_steps_per_s']:.4g} env steps/s "
+            f"(an epoch of {envs} x {steps} env steps and its update: "
+            f"{m['epoch']:.4f} s, median of epochs 1-{TRAIN_EPOCHS - 1}); "
+            f"the rollout alone {r['rollout_env_steps_per_s']:.4g} env "
+            f"steps/s; a step: sampling {r['sample_ms_per_step']:.3f} ms, "
+            f"the vector env step {r['env_step_ms_per_step']:.3f} ms; an "
+            f"epoch: policy update {r['pi_update_ms_per_epoch']:.1f} ms "
+            f"({r['pi_iterations']:.0f} iterations), value update "
+            f"{r['v_update_ms_per_epoch']:.1f} ms ({m['v_update_calls']:.0f}"
+            f"), the rest {r['rest_ms_per_epoch']:.1f} ms; {w:.3f} s in all")
+    return {"launches": {p: PATH_LAUNCHES[p].get(ENV_KEY, 0)
+                         for p in TRAIN_PATHS.values()},
+            "check": worst, "policy": pol, "measured": meas,
+            "profiled": profiled}
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -1846,6 +2189,7 @@ def run(dev: torch.device) -> dict:
     split["probe"] = phase_dep_stride(dev, code, main)
     mb = phase_microbench(dev)
     env = phase_env(dev)
+    trainer = phase_trainer(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -1912,7 +2256,7 @@ def run(dev: torch.device) -> dict:
     kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main, "split": split,
-            "microbench": mb, "env": env}
+            "microbench": mb, "env": env, "trainer": trainer}
 
 
 def main() -> int:

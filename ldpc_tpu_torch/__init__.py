@@ -19,12 +19,15 @@ find:
   envs/    the code-search env (``LdpcCodeSearchEnv``: each candidate
            decoded by the fused kernel on the card, by ``ops/dynamic.py``
            on the CPU) and its vector container
-  rl/      the random-search baseline
-  utils/   device selection, the bounded cache, the experiment loggers
+  rl/      the autoregressive actor-critic, the GAE buffer, PPO (vector
+           rollout, exact resume) and VPG, the trainer's entry point, the
+           random-search baseline
+  utils/   device selection, the bounded cache, the experiment loggers,
+           checkpoints (``torch.save``), experiment grids
   csrc/    CUDA sources and their nvcc + ctypes build
   scripts/ ``python -m ldpc_tpu_torch.scripts.split_ab``
   cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe|random-agent|
-           perturb``
+           perturb|train``
 
 Entry points run on the card unless called with ``device="cpu"``.
 

@@ -1,6 +1,6 @@
 """Command-line entry points of the port: ``python -m ldpc_tpu_torch.cli``.
 
-The counterpart of ``python -m ldpc_tpu.cli`` for five of its commands,
+The counterpart of ``python -m ldpc_tpu.cli`` for six of its commands,
 with the same arguments and defaults:
 
   evaluate     BER/FER sweep of a code on the card
@@ -9,6 +9,8 @@ with the same arguments and defaults:
   random-agent random code-search baseline (each candidate decoded by the
                fused kernel)
   perturb      write the zeroed-circulant robustness suite
+  train        PPO code search (``rl/train.py``; its arguments follow the
+               command, after an optional ``--``)
 
 Engines: ``--engine torch`` is the counterpart of ``xla`` (plain torch
 ops), ``--engine cuda`` of ``pallas`` (the CUDA kernel: flooding or
@@ -149,6 +151,12 @@ def cmd_perturb(args):
     return out
 
 
+def cmd_train(args):
+    """The PPO trainer; returns (actor, critic, logger)."""
+    from .rl.train import main as train_main
+    return train_main(args.rest, device=_device())
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ldpc_tpu_torch", description=__doc__,
                                 formatter_class=argparse.
@@ -232,6 +240,13 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "ldpc_tpu_test_matrices"))
     pe.set_defaults(fn=cmd_perturb)
+
+    # every argument after "train" is rl.train's (its own --help too): a
+    # prefix no argument uses keeps this parser from taking any of them
+    tr = sub.add_parser("train", help="PPO code search", prefix_chars="+",
+                        add_help=False)
+    tr.add_argument("rest", nargs="*", help="args passed to rl.train")
+    tr.set_defaults(fn=cmd_train)
     return p
 
 

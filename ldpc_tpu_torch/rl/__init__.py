@@ -1,6 +1,23 @@
-"""RL layer: so far the random-search baseline (``rl/random_agent.py``); the
-actor-critic, buffers and PPO wait in ROADMAP.md Queue A item 6."""
+"""RL layer: the autoregressive actor-critic (``model.py``), the GAE buffer
+(``buffer.py``), PPO with a vector rollout and exact resume (``ppo.py``), its
+entry point (``train.py``, ``cli train``), VPG (``vpg.py``) and the
+random-search baseline (``random_agent.py``).  TRPO, DDPG/TD3, SAC and the
+continuous-control pieces wait in ROADMAP.md Queue A item 6."""
 
+from .model import (Actor, ActorCriticConfig, Critic, MLP,
+                    action_to_env_action, evaluate_actions, init_params,
+                    noise_width, params_from_jax, sample_step)
+from .buffer import BufferContainer, PPOBuffer, discount_cumsum
+from .ppo import PPOConfig, env_generators, make_update_fns, ppo
 from .random_agent import run_random_agent
+from .vpg import VPGConfig, vpg
 
-__all__ = ["run_random_agent"]
+__all__ = [
+    "Actor", "ActorCriticConfig", "Critic", "MLP", "action_to_env_action",
+    "evaluate_actions", "init_params", "noise_width", "params_from_jax",
+    "sample_step",
+    "BufferContainer", "PPOBuffer", "discount_cumsum",
+    "PPOConfig", "env_generators", "make_update_fns", "ppo",
+    "run_random_agent",
+    "VPGConfig", "vpg",
+]

@@ -11,7 +11,7 @@ Covers the reference's three logging systems (SURVEY.md §5):
   min/max (``log_tabular(..., with_min_and_max)``).
 
 The reference's joblib/pickle ``save_state`` (logx.py:180-280) is not
-here: state checkpoints wait for the port of ``utils/checkpoint.py``.
+here: training state goes to ``utils/checkpoint.py``.
 """
 
 from __future__ import annotations

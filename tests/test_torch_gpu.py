@@ -578,3 +578,78 @@ def test_env_raises_where_the_kernel_refuses_a_candidate(cuda):
     a[env.x_bits + env.y_bits + 7] = 1
     with pytest.raises(NotImplementedError, match="shared memory"):
         env.step(a)
+
+
+def _trainer_env_fn(cuda, seed):
+    from ldpc_tpu_torch.envs import LdpcCodeSearchEnv
+    return lambda: LdpcCodeSearchEnv(
+        code=wifi_code(), snr_points=(3.0, 3.5), num_transmissions=2,
+        num_iterations=5, seed=seed, dmax_cn_cap=32, dmax_vn_cap=12,
+        device=cuda)
+
+
+_TRAINER_AC = dict(hidden=16, row_range=4, col_range=24, z=81, max_hot=4)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_trainer_resume_is_exact_on_card(cuda, tmp_path, batched):
+    """PPO on the card, 2 envs, each candidate decoded by the fused
+    kernel: 3 epochs equal, byte for byte, 1 epoch resumed to 3; batched
+    vector steps write what sequential ones do."""
+    from ldpc_tpu_torch.rl import ActorCriticConfig, PPOConfig, ppo
+    env_fn = _trainer_env_fn(cuda, 6)
+    ac = ActorCriticConfig(obs_dim=env_fn().observation_space.shape[0],
+                           **_TRAINER_AC)
+
+    def run(epochs, name, resume=False, env_batched=batched):
+        cfg = PPOConfig(steps_per_epoch=2, epochs=epochs, train_pi_iters=2,
+                        train_v_iters=2, save_freq=1, seed=13)
+        actor, _, _ = ppo(env_fn, cfg, ac, num_envs=2,
+                          env_batched=env_batched,
+                          output_dir=tmp_path / name,
+                          checkpoint_dir=tmp_path / f"ckpt_{name}",
+                          resume=resume, device=cuda)
+        assert next(actor.parameters()).is_cuda
+        return (tmp_path / name / "steps.tsv").read_text()
+
+    cuda_static.launches.clear()
+    full = run(3, "full")
+    assert cuda_static.launches.get(
+        ("min-sum", "float32", "flooding", False), 0) > 0
+    run(1, "split")
+    assert run(3, "split", resume=True) == full
+    if batched:
+        assert run(3, "seq", env_batched=False) == full
+
+
+def test_trainer_policy_on_card_matches_cpu(cuda):
+    """Full width: the same weights on the card and on the CPU give
+    evaluate_actions within the CPU tests' tolerance (rtol 1e-5, atol
+    1e-4), the same mode, and the same value step (1e-5)."""
+    from ldpc_tpu_torch.rl import (ActorCriticConfig, PPOConfig,
+                                   env_generators, evaluate_actions,
+                                   init_params, make_update_fns,
+                                   sample_step)
+    cfg = ActorCriticConfig()
+    a_cpu, c_cpu = init_params(cfg, seed=2, device="cpu")
+    a_gpu, c_gpu = init_params(cfg, seed=2, device=cuda)
+    rng = np.random.default_rng(0)
+    obs = torch.tensor(rng.integers(0, 256, (16, cfg.obs_dim)).astype(
+        np.float32))
+    act = sample_step(cfg, a_gpu, c_gpu, obs.to(cuda),
+                      env_generators(1, 16, cuda))[0]
+    got = evaluate_actions(cfg, a_gpu, obs.to(cuda), act)
+    want = evaluate_actions(cfg, a_cpu, obs, act.cpu())
+    for k in ("logp", "logp_per_head", "entropy", "entropy_per_head"):
+        np.testing.assert_allclose(got[k].detach().cpu().numpy(),
+                                   want[k].detach().numpy(), rtol=1e-5,
+                                   atol=1e-4, err_msg=k)
+    assert torch.equal(
+        sample_step(cfg, a_gpu, c_gpu, obs.to(cuda), deterministic=True)[0]
+        .cpu(), sample_step(cfg, a_cpu, c_cpu, obs, deterministic=True)[0])
+    _, vf_opt, _, v_up = make_update_fns(cfg, PPOConfig())
+    ret = torch.tensor(rng.standard_normal(16).astype(np.float32))
+    l_gpu = v_up(c_gpu, vf_opt(c_gpu.parameters()), obs.to(cuda),
+                 ret.to(cuda))
+    l_cpu = v_up(c_cpu, vf_opt(c_cpu.parameters()), obs, ret)
+    assert abs(float(l_gpu) - float(l_cpu)) <= 1e-5 * max(1.0, float(l_cpu))

@@ -98,7 +98,11 @@ def test_port_and_chip_smoke_import_without_jax():
               "ldpc_tpu_torch.sim.reward", "ldpc_tpu_torch.envs.spaces",
               "ldpc_tpu_torch.envs.code_search",
               "ldpc_tpu_torch.envs.vector", "ldpc_tpu_torch.rl.random_agent",
-              "ldpc_tpu_torch.utils.cache", "ldpc_tpu_torch.utils.logging"):
+              "ldpc_tpu_torch.utils.cache", "ldpc_tpu_torch.utils.logging",
+              "ldpc_tpu_torch.rl.buffer", "ldpc_tpu_torch.rl.model",
+              "ldpc_tpu_torch.rl.ppo", "ldpc_tpu_torch.rl.train",
+              "ldpc_tpu_torch.rl.vpg", "ldpc_tpu_torch.utils.checkpoint",
+              "ldpc_tpu_torch.utils.experiment"):
         assert m in res["modules"]
 
 
@@ -158,6 +162,33 @@ def test_code_search_entry_points_raise_without_a_card(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_trainer_refuses_to_run_on_the_cpu_unless_asked(monkeypatch,
+                                                        tmp_path):
+    """ppo, vpg, train.main and ``cli train`` train on the card; without
+    one, and without device="cpu" or LDPC_TPU_PLATFORM=cpu, they raise
+    before they write anything."""
+    monkeypatch.delenv("LDPC_TPU_PLATFORM", raising=False)
+    if torch.cuda.is_available():
+        return
+    from ldpc_tpu_torch.rl import (ActorCriticConfig, init_params, ppo,
+                                   vpg)
+    from ldpc_tpu_torch.rl.train import main as train_main
+
+    def env_fn():
+        raise AssertionError("an env was built")
+
+    out = tmp_path / "out"
+    calls = [lambda: ppo(env_fn, output_dir=out),
+             lambda: vpg(env_fn, output_dir=out),
+             lambda: train_main(["--data_dir", str(out)]),
+             lambda: cli.main(["train", "--data_dir", str(out)]),
+             lambda: init_params(ActorCriticConfig())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not out.exists()
 
 
 def _run_chip_smoke(cwd, script):
