@@ -129,11 +129,13 @@ no result line:
            (flooding min-sum, float32 state): (a) `cli train --num_envs 2
            --steps 16 --epochs 3` (80/80 update iterations), then 2 epochs
            and a `--resume` to 3: steps.tsv equal byte for byte, and B1
-           launched once a legal env step; (b) the first epoch's 32
-           candidates, their codes and LLRs, through the kernel and its
-           plain version: every word equal; (c) the trained policy on the
-           card against the same weights on the CPU: evaluate_actions
-           within the CPU tests' tolerance, mode equal, one update step
+           launched once a legal env step, in the uninterrupted run and
+           in the resumed one; (b) every legal candidate of (a)'s run, the
+           first epoch's among them, their codes and LLRs, through the
+           kernel and its plain version: every word equal; (c) the
+           trained policy on the card against the same weights on the
+           CPU: evaluate_actions within the CPU tests' tolerance, mode
+           equal, one update step's extras, gradients and parameters
            within tolerance; (d) the same training with batched vector
            steps (steps.tsv equal to (a)'s): env steps/s of each, sampling
            ms a step, env step ms, update ms an epoch; one sampling step
@@ -331,13 +333,27 @@ TRAIN_EPOCHS = 3
 TRAIN_SPLIT = 2
 TRAIN_PATHS = {"a": "trainer (a) cli train", "a_resume":
                "trainer (a) split and resumed", "d": "trainer (d) batched"}
-# (c) the CPU tests' tolerances (tests/test_torch_rl_model.py,
-# tests/test_torch_ppo.py): log-probs and entropies rtol 1e-5, atol 1e-4;
-# an update's extras 1e-5 (relative above 1); its parameters 1e-5, but
-# for the rows of a first-layer unit tanh holds in its flat tail on every
-# row (|a| >= 7.5, < 9.1 on some), which may step by up to lr either side
+# (c) the card against the CPU.  Log-probs and entropies: the CPU tests'
+# rtol 1e-5, atol 1e-4 (tests/test_torch_rl_model.py).  An update's
+# extras: within EXTRAS_ATOL of max(1, |the CPU's value|), so absolute for
+# the O(1) ones, as in tests/test_torch_ppo.py, and relative for the value
+# loss, O(100) on raw observation bytes, where float32 rounds a mean of
+# O(1e4) squares at about 1e-7 of the value but 1e-5 absolute is 3e-8 of
+# it.  The step's gradients: each element within GRAD_RTOL of its CPU
+# value plus GRAD_ATOL of its tensor's largest |gradient|, so a backward
+# pass with wrong magnitudes fails (a fresh Adam's first step moves each
+# element by about lr whatever its gradient's size, so the parameters
+# after it see only the signs).  The two devices' float32 sums differ
+# by up to 1e-4 of a tensor's largest gradient in its smallest elements,
+# up to 0.75 of this tolerance on fresh full-width weights
+# (ldpc_tpu_torch/scripts/grad_parity.py on the H100), far below a wrong
+# magnitude.  The parameters
+# after the step: 1e-5, but for the rows of a first-layer unit tanh holds
+# in its flat tail on every row (|a| >= 7.5, < 9.1 on some), which may
+# step by up to lr either side.
 POLICY_RTOL, POLICY_ATOL = 1e-5, 1e-4
 EXTRAS_ATOL = PARAM_ATOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 3e-5
 
 # The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
 # operations over the float32 peak, which counts a fused multiply-add as 2
@@ -1851,9 +1867,30 @@ def _saturated_rows(weight: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
     return (a >= 7.5).all(0) & (a.min(0).values < 9.1)
 
 
+def _grad_excess(got: dict, want: dict) -> tuple:
+    """(the largest |card - CPU| over its tolerance, GRAD_RTOL x |CPU| +
+    GRAD_ATOL x the tensor's largest |CPU|, and the largest |card - CPU|
+    over the tensor's largest |CPU|), over every parameter's gradient; a
+    parameter with a gradient on one side only is infinitely apart."""
+    worst, rel = 0.0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g is None or w is None:
+            if (g is None) != (w is None):
+                return float("inf"), float("inf")
+            continue
+        scale = float(w.abs().max())
+        diff = (g - w).abs()
+        tol = GRAD_RTOL * w.abs() + GRAD_ATOL * scale
+        worst = max(worst, float((diff / tol.clamp_min(1e-30)).max()))
+        rel = max(rel, float(diff.max()) / max(scale, 1e-30))
+    return worst, rel
+
+
 def _policy_check(dev, actor, critic, obs_np) -> dict:
     """The trained policy on the card against the same weights on the CPU:
-    evaluate_actions, mode, and one update step."""
+    evaluate_actions, mode, and one update step: its extras, its
+    gradients and the parameters after it."""
     from ldpc_tpu_torch.rl import (Actor, Critic, PPOConfig, env_generators,
                                    evaluate_actions, make_update_fns,
                                    sample_step)
@@ -1888,8 +1925,12 @@ def _policy_check(dev, actor, critic, obs_np) -> dict:
         pi_opt, vf_opt, pi_up, v_up = make_update_fns(cfg, PPOConfig())
         ex = pi_up(a, pi_opt(a.parameters()), o, ac, adv.to(d), logp_old)
         ex["loss_v"] = v_up(c, vf_opt(c.parameters()), o, ret.to(d))
+        # the step's gradients: the updates leave them in .grad
+        grads = {f"{net}.{k}": None if p.grad is None else p.grad.cpu()
+                 for net, m in (("actor", a), ("critic", c))
+                 for k, p in m.named_parameters()}
         res[side] = {"ev": {k: v.detach().cpu() for k, v in ev.items()},
-                     "mode": mode,
+                     "mode": mode, "grads": grads,
                      "extras": {k: float(v) for k, v in ex.items()},
                      "params": {**{"actor." + k: v.detach().cpu()
                                    for k, v in a.state_dict().items()},
@@ -1899,9 +1940,10 @@ def _policy_check(dev, actor, critic, obs_np) -> dict:
     ev_err = max(float(((g["ev"][k] - w["ev"][k]).abs() - POLICY_RTOL *
                         w["ev"][k].abs()).max()) for k in w["ev"])
     mode_equal = torch.equal(g["mode"], w["mode"])
-    # relative above 1: the value loss on raw observation bytes is O(10)
+    # relative above 1 (EXTRAS_ATOL's comment)
     ex_err = {k: abs(g["extras"][k] - w["extras"][k]) / max(
         1.0, abs(w["extras"][k])) for k in w["extras"]}
+    grad_excess, grad_rel = _grad_excess(g["grads"], w["grads"])
     param_err, wide = 0.0, 0
     for k, v in w["params"].items():
         diff = (g["params"][k] - v).abs()
@@ -1914,9 +1956,11 @@ def _policy_check(dev, actor, critic, obs_np) -> dict:
         param_err = max(param_err, float((diff - tol).max()))
     out = {"words": b, "evaluate_excess": ev_err, "mode_equal": mode_equal,
            "extras_err": ex_err, "extras": w["extras"],
+           "grad_excess": grad_excess, "grad_rel_err": grad_rel,
            "param_excess": param_err, "saturated_units": wide // 2}
     if not (ev_err <= POLICY_ATOL and mode_equal and param_err <= 0.0
-            and max(ex_err.values()) <= EXTRAS_ATOL):
+            and max(ex_err.values()) <= EXTRAS_ATOL
+            and grad_excess <= 1.0):
         raise AssertionError(f"(c) the policy on the card and on the CPU "
                              f"differ: {out}")
     return out
@@ -1924,7 +1968,7 @@ def _policy_check(dev, actor, critic, obs_np) -> dict:
 
 def phase_trainer(dev) -> dict:
     """The PPO trainer: (a) `cli train` at full width, and 2 epochs resumed
-    to 3, byte for byte; (b) the first epoch's candidates through the
+    to 3, byte for byte; (b) the run's legal candidates through the
     kernel and its plain version; (c) the policy on the card against the
     CPU; (d) env steps/s batched and sequential, and their split."""
     import copy
@@ -1960,20 +2004,42 @@ def phase_trainer(dev) -> dict:
             return out
         return wrapped
 
-    def update_fns(*a, **k):
-        pi_opt, vf_opt, pi_up, v_up = orig["fns"](*a, **k)
+    def timed_loop(name, fn, n):
+        """``fn`` called ``n`` times in a row, timed as one span and
+        synchronised after the last call only: the trainer queues its
+        value steps and reads their loss once, after the loop."""
+        span = {"calls": 0, "t0": 0.0}
+
+        def wrapped(*a, **k):
+            if span["calls"] % n == 0:
+                span["t0"] = time.perf_counter()
+            out = fn(*a, **k)
+            span["calls"] += 1
+            if span["calls"] % n == 0:
+                sync(dev)
+                times[name].append((span["t0"],
+                                    time.perf_counter() - span["t0"]))
+            return out
+        return wrapped
+
+    def update_fns(ac_cfg, ppo_cfg, *a, **k):
+        pi_opt, vf_opt, pi_up, v_up = orig["fns"](ac_cfg, ppo_cfg, *a, **k)
         return (pi_opt, vf_opt, timed("pi_update", pi_up),
-                timed("v_update", v_up))
+                timed_loop("v_update", v_up, ppo_cfg.train_v_iters))
 
     def dump_times(self):
         times["epoch_end"].append(time.perf_counter())
+        times["epoch_decodes"].append(len(seen))
         return orig["dump"](self)
 
     def instrumented(run):
         """``run()`` with the env step, the sampling, the updates and each
-        epoch's end timed (each synchronised: the host reads each result
-        right after anyway)."""
+        epoch's end timed.  Each call is synchronised where the host reads
+        its result right after anyway (the sampled actions, the env's
+        rewards, the policy step's KL), and the value loop once, at its
+        end, so the run makes no wait that the trainer alone does not."""
         times.clear()
+        seen.clear()
         LdpcCodeSearchEnv._decode_batched = recording
         EnvironmentVector.step = timed("env_step", orig["vstep"])
         ppo_mod.sample_step = timed("sample", orig["sample"])
@@ -2008,15 +2074,32 @@ def phase_trainer(dev) -> dict:
             raise AssertionError(f"(a) {len(rows)} rows in steps.tsv")
         if got.get(ENV_KEY, 0) == 0 or got.get(ENV_KEY, 0) != legal:
             raise AssertionError(f"(a) {legal} legal steps, launches {got}")
-        first = seen[:envs * steps]
-        # the same run in two pieces, the second resumed from a checkpoint
+        cands, in_epoch0 = list(seen), t_seq["epoch_decodes"][0]
+        if len(cands) != legal:
+            raise AssertionError(f"(a) {len(cands)} decodes recorded for "
+                                 f"{legal} legal steps")
+        # the same run in two pieces, the second resumed from a checkpoint;
+        # the first piece hooked at each epoch's end only, for an epoch
+        # time with no timing hook inside the epoch
         clear_launches()
-        _train_run(dev, f"{tmp}/split", TRAIN_SPLIT)
+        plain_ends = []
+
+        def dump_only(self):
+            plain_ends.append(time.perf_counter())
+            return orig["dump"](self)
+        ppo_mod.EpochLogger.dump_tabular = dump_only
+        try:
+            _train_run(dev, f"{tmp}/split", TRAIN_SPLIT)
+        finally:
+            ppo_mod.EpochLogger.dump_tabular = orig["dump"]
         _, split = _train_run(dev, f"{tmp}/split", TRAIN_EPOCHS, resume=True)
-        record_path(TRAIN_PATHS["a_resume"])
+        got_r = record_path(TRAIN_PATHS["a_resume"])
         if split != tsv:
             raise AssertionError("(a) the resumed run's steps.tsv differs "
                                  "from the uninterrupted run's")
+        if got_r.get(ENV_KEY, 0) != legal:
+            raise AssertionError(f"(a) split and resumed: {legal} legal "
+                                 f"steps, launches {got_r}")
         log(tag, f"(a) {TRAIN_SPLIT} epochs resumed to {TRAIN_EPOCHS}: "
             f"steps.tsv equal byte for byte ({len(tsv)} bytes)")
         # (d) the same run with batched vector steps
@@ -2034,10 +2117,12 @@ def phase_trainer(dev) -> dict:
         obs_np = np.stack([np.frombuffer(bytes.fromhex(r[-1].decode()),
                                          np.uint8) for r in rows[:envs * steps]
                            ]).astype(np.float32)
-    # (b) the first epoch's candidates, kernel against its plain version
+    # (b) every legal candidate of (a)'s run, those of the first epoch
+    # among them, kernel against its plain version
     worst = {"mismatched": 0, "max_abs_err": 0, "words": 0, "converged": 0,
-             "max_check_degree": 0}
-    for code, llr in first:
+             "max_check_degree": 0, "candidates": len(cands),
+             "in_epoch_0": in_epoch0}
+    for code, llr in cands:
         dec = make_static_sweep_decoder(code, MAX_ITERS,
                                         store_dtype="float32", device=dev)
         kern = dec(llr)
@@ -2050,11 +2135,11 @@ def phase_trainer(dev) -> dict:
         worst["converged"] += int(kern[2].sum())
         worst["max_check_degree"] = max(worst["max_check_degree"],
                                         plan.dmax_cn)
-    log(tag, f"(b) epoch 0's {len(first)} candidates, {worst['words']} "
-        f"words (check degree up to {worst['max_check_degree']}, "
-        f"{worst['converged']} converged): kernel vs plain "
-        f"{worst['mismatched']} mismatched words")
-    if worst["mismatched"] or not first:
+    log(tag, f"(b) the run's {len(cands)} legal candidates ({in_epoch0} of "
+        f"them in epoch 0), {worst['words']} words (check degree up to "
+        f"{worst['max_check_degree']}, {worst['converged']} converged): "
+        f"kernel vs plain {worst['mismatched']} mismatched words")
+    if worst["mismatched"] or not in_epoch0:
         raise AssertionError(f"(b) the trainer's decodes disagree: {worst}")
     # (c) the trained policy, card against CPU
     pol = _policy_check(dev, actor, critic, obs_np)
@@ -2062,8 +2147,12 @@ def phase_trainer(dev) -> dict:
     log(tag, f"(c) {pol['words']} observations of epoch 0: evaluate_actions "
         f"within rtol {POLICY_RTOL} + {pol['evaluate_excess']:.3g} (atol "
         f"{POLICY_ATOL}), mode equal {pol['mode_equal']}; one update: "
-        f"extras (CPU) {pol['extras']}, apart by {ex_err} (relative above 1; tolerance {EXTRAS_ATOL}); parameters within "
-        f"their tolerance, largest excess {pol['param_excess']:.3g} "
+        f"extras (CPU) {pol['extras']}, apart by {ex_err} (over max(1, "
+        f"|CPU|); tolerance {EXTRAS_ATOL}); gradients at "
+        f"{pol['grad_excess']:.3g} of their tolerance (rtol {GRAD_RTOL} + "
+        f"{GRAD_ATOL} x each tensor's largest), apart by up to "
+        f"{pol['grad_rel_err']:.3g} of the tensor's largest; parameters "
+        f"within their tolerance, largest excess {pol['param_excess']:.3g} "
         f"({pol['saturated_units']} saturated first-layer units at lr)")
     # (d) one sampling step and one iteration of each update of the
     # trained nets under the profiler: device events and busy share
@@ -2094,7 +2183,7 @@ def phase_trainer(dev) -> dict:
     # (d) the measurements: each epoch after the first (which warms up)
     # from the end of the one before to its own end, split by the timed
     # calls that started in it; medians over those epochs
-    meas = {}
+    meas, v_iters = {}, PPOConfig().train_v_iters
     for mode, t, w in (("sequential", t_seq, wall), ("batched", t_bat,
                                                       wall_b)):
         ends = t["epoch_end"]
@@ -2119,6 +2208,14 @@ def phase_trainer(dev) -> dict:
                                   m["v_update"]) * 1e3,
             "epoch_s": m["epoch"], "wall_s": w}
         r = meas[mode]
+        if mode == "sequential":
+            # epoch 1 of the split run's first piece, hooked at dump only
+            r["unhooked_epoch_s"] = plain_ends[1] - plain_ends[0]
+            r["unhooked_env_steps_per_s"] = rate = (
+                envs * steps / r["unhooked_epoch_s"])
+            log(tag, f"(d) sequential, hooked only at each epoch's end "
+                f"(the split run's epoch 1): {rate:.4g} env steps/s "
+                f"({r['unhooked_epoch_s']:.4f} s)")
         log(tag, f"(d) {mode}: {r['env_steps_per_s']:.4g} env steps/s "
             f"(an epoch of {envs} x {steps} env steps and its update: "
             f"{m['epoch']:.4f} s, median of epochs 1-{TRAIN_EPOCHS - 1}); "
@@ -2127,8 +2224,9 @@ def phase_trainer(dev) -> dict:
             f"the vector env step {r['env_step_ms_per_step']:.3f} ms; an "
             f"epoch: policy update {r['pi_update_ms_per_epoch']:.1f} ms "
             f"({r['pi_iterations']:.0f} iterations), value update "
-            f"{r['v_update_ms_per_epoch']:.1f} ms ({m['v_update_calls']:.0f}"
-            f"), the rest {r['rest_ms_per_epoch']:.1f} ms; {w:.3f} s in all")
+            f"{r['v_update_ms_per_epoch']:.1f} ms ({v_iters} iterations, "
+            f"one span), the rest {r['rest_ms_per_epoch']:.1f} ms; "
+            f"{w:.3f} s in all")
     return {"launches": {p: PATH_LAUNCHES[p].get(ENV_KEY, 0)
                          for p in TRAIN_PATHS.values()},
             "check": worst, "policy": pol, "measured": meas,

@@ -106,10 +106,7 @@ def make_update_fns(cfg: ActorCriticConfig, ppo_cfg: PPOConfig,
     step, so the first KL of a batch is 0.
     """
     _no_mesh(mesh, "mesh")
-    pi_opt = functools.partial(torch.optim.Adam, lr=ppo_cfg.pi_lr,
-                               betas=(0.9, 0.999), eps=1e-8)
-    vf_opt = functools.partial(torch.optim.Adam, lr=ppo_cfg.vf_lr,
-                               betas=(0.9, 0.999), eps=1e-8)
+    pi_opt, vf_opt = _adam(ppo_cfg.pi_lr), _adam(ppo_cfg.vf_lr)
     clip = ppo_cfg.clip_ratio
     ent_sign = -1.0 if ppo_cfg.entropy_bonus else 1.0
 
@@ -133,14 +130,22 @@ def make_update_fns(cfg: ActorCriticConfig, ppo_cfg: PPOConfig,
                     "loss_pi": loss_pi.detach(),
                     "clipfrac": torch.mean(clipped.to(torch.float32))}
 
-    def v_update(critic, opt, obs, ret):
-        loss = torch.mean((critic(obs) - ret) ** 2)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+    return pi_opt, vf_opt, pi_update, _value_update
 
-    return pi_opt, vf_opt, pi_update, v_update
+
+def _adam(lr: float):
+    """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8, no weight decay."""
+    return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8)
+
+
+def _value_update(critic, opt, obs, ret):
+    """One step of the value net on the mean squared error to ``ret``."""
+    loss = torch.mean((critic(obs) - ret) ** 2)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach()
 
 
 def env_generators(seed: int, num_envs: int, device) -> list:

@@ -23,7 +23,8 @@ from ..utils.logging import EpochLogger
 from .buffer import PPOBuffer
 from .model import (ActorCriticConfig, action_to_env_action,
                     evaluate_actions, init_params, sample_step)
-from .ppo import _check_env_devices, _policy_device
+from .ppo import (_adam, _check_env_devices, _policy_device,
+                  _value_update)
 
 __all__ = ["VPGConfig", "vpg"]
 
@@ -61,10 +62,8 @@ def vpg(env_fn: Callable, cfg: VPGConfig | None = None,
 
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     actor, critic = init_params(ac_cfg, cfg.seed, device=dev)
-    pi_opt = torch.optim.Adam(actor.parameters(), lr=cfg.pi_lr,
-                              betas=(0.9, 0.999), eps=1e-8)
-    vf_opt = torch.optim.Adam(critic.parameters(), lr=cfg.vf_lr,
-                              betas=(0.9, 0.999), eps=1e-8)
+    pi_opt = _adam(cfg.pi_lr)(actor.parameters())
+    vf_opt = _adam(cfg.vf_lr)(critic.parameters())
 
     def pi_update(obs, act, adv):
         loss = -torch.mean(evaluate_actions(ac_cfg, actor, obs, act)["logp"]
@@ -72,13 +71,6 @@ def vpg(env_fn: Callable, cfg: VPGConfig | None = None,
         pi_opt.zero_grad(set_to_none=True)
         loss.backward()
         pi_opt.step()
-        return loss.detach()
-
-    def v_update(obs, ret):
-        loss = torch.mean((critic(obs) - ret) ** 2)
-        vf_opt.zero_grad(set_to_none=True)
-        loss.backward()
-        vf_opt.step()
         return loss.detach()
 
     buf = PPOBuffer(obs_dim, ac_cfg.buffer_action_dim, cfg.steps_per_epoch,
@@ -128,7 +120,7 @@ def vpg(env_fn: Callable, cfg: VPGConfig | None = None,
         pi_l = pi_update(obs_b, act_b, adv_b)
         v_l = np.nan
         for _ in range(cfg.train_v_iters):
-            v_l = v_update(obs_b, ret_b)
+            v_l = _value_update(critic, vf_opt, obs_b, ret_b)
         logger.log_tabular("Epoch", epoch)
         logger.log_tabular("EpRet", with_min_and_max=True)
         logger.log_tabular("Reward", average_only=True)

@@ -625,11 +625,22 @@ def test_trainer_resume_is_exact_on_card(cuda, tmp_path, batched):
 def test_trainer_policy_on_card_matches_cpu(cuda):
     """Full width: the same weights on the card and on the CPU give
     evaluate_actions within the CPU tests' tolerance (rtol 1e-5, atol
-    1e-4), the same mode, and the same value step (1e-5)."""
+    1e-4), the same mode, the same value loss (1e-5 relative above 1), and
+    the same gradients of a policy and a value step from fresh weights
+    (``scripts/grad_parity.py`` at its defaults): each element within 1e-4
+    of its CPU value plus 3e-5 of its tensor's largest |gradient|
+    (chip_smoke.py's GRAD_RTOL, GRAD_ATOL).  The gradients are held on the
+    observations / 255, as the CPU update test's are: on raw bytes nearly
+    every first-layer unit of fresh weights sits in tanh's flat tail on
+    every row, where the two devices' float32 tanh differ in the last
+    place and that difference is the whole gradient.  chip_smoke.py phase
+    14 (c) holds the trained policy's gradients on the trainer's raw-byte
+    observations."""
     from ldpc_tpu_torch.rl import (ActorCriticConfig, PPOConfig,
                                    env_generators, evaluate_actions,
                                    init_params, make_update_fns,
                                    sample_step)
+    from ldpc_tpu_torch.scripts import grad_parity
     cfg = ActorCriticConfig()
     a_cpu, c_cpu = init_params(cfg, seed=2, device="cpu")
     a_gpu, c_gpu = init_params(cfg, seed=2, device=cuda)
@@ -653,3 +664,8 @@ def test_trainer_policy_on_card_matches_cpu(cuda):
                  ret.to(cuda))
     l_cpu = v_up(c_cpu, vf_opt(c_cpu.parameters()), obs, ret)
     assert abs(float(l_gpu) - float(l_cpu)) <= 1e-5 * max(1.0, float(l_cpu))
+    grads = grad_parity.measure(seed=2, rows=16, rtol=1e-4, atol=3e-5)
+    scaled = grads["scales"]["obs/255"]
+    assert len(scaled["params"]) == len(list(a_cpu.parameters())) + len(
+        list(c_cpu.parameters()))
+    assert scaled["max_excess"] <= 1.0, scaled

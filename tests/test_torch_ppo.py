@@ -17,6 +17,10 @@ weights carried across by ``params_from_jax``, on the same numpy inputs.
   the model tests' tolerance (rtol 1e-5, atol 1e-4), the same early-stop
   iterations, and the final parameters agree to ``PARAM_ATOL``, with one
   exception below.
+* ``vpg`` (``ldpc_tpu_torch/rl/vpg.py``) for 2 epochs in both packages
+  the same way, each acting by ``mode``: the same actions, LossPi, LossV
+  and VVals within rtol 1e-5 + 1e-5, and every parameter within
+  ``PARAM_ATOL``.
 
 Adam divides by sqrt(v): an element whose gradient sits at rounding level
 steps by up to lr on one side whatever the other side does.  That happens
@@ -30,6 +34,7 @@ update test's batch (observations / 255) has no such unit: all of its
 elements end within 3e-7.
 """
 
+import functools
 import importlib
 import types
 
@@ -40,11 +45,14 @@ import pytest
 import torch
 
 from ldpc_tpu_torch.rl import (Actor, ActorCriticConfig, Critic, PPOConfig,
-                               make_update_fns, params_from_jax, ppo)
+                               VPGConfig, make_update_fns, params_from_jax,
+                               ppo, sample_step, vpg)
 
 jm = importlib.import_module("ldpc_tpu.rl.model")
 jp = importlib.import_module("ldpc_tpu.rl.ppo")
+jv = importlib.import_module("ldpc_tpu.rl.vpg")
 port_ppo = importlib.import_module("ldpc_tpu_torch.rl.ppo")
+port_vpg = importlib.import_module("ldpc_tpu_torch.rl.vpg")
 
 torch.set_num_threads(1)
 
@@ -221,3 +229,53 @@ def test_ppo_two_epochs_agree_with_jax(tmp_path, monkeypatch):
         assert rows.sum() <= 2, (name, np.flatnonzero(rows))
         loose[name + ".weight"] = loose[name + ".bias"] = (rows, wide)
     _assert_params_close(actor, critic, j_ap, j_cp, loose)
+
+
+def test_vpg_two_epochs_agree_with_jax(tmp_path, monkeypatch):
+    """``vpg`` for 2 epochs in both packages from the same carried weights,
+    each acting by ``mode`` (``sample_step`` patched to deterministic), on
+    the stub env: the same actions and rewards, so the same batches; each
+    epoch's LossPi (its one policy-gradient step), LossV (after its 80
+    value steps) and VVals within rtol 1e-5 + ``EXTRAS_ATOL`` (float32
+    means of O(1) values; measured 1.1e-6), and every final parameter
+    within ``PARAM_ATOL`` (measured 6.3e-7; no first-layer unit of this
+    run saturates, so no row is loosened)."""
+    jcfg, cfg, (ap, cp), port_init = _carried(7)
+    monkeypatch.setattr(jv, "init_params", lambda *a, **k: (ap, cp))
+    monkeypatch.setattr(jv, "sample_step", functools.partial(
+        jm.sample_step, deterministic=True))
+    monkeypatch.setattr(port_vpg, "init_params", port_init)
+    monkeypatch.setattr(port_vpg, "sample_step", functools.partial(
+        sample_step, deterministic=True))
+    acts = {"jax": [], "port": []}
+
+    def recording(side):
+        class Env(_StubEnv):
+            def step(self, action):
+                acts[side].append(np.asarray(action, np.int64))
+                return super().step(action)
+        return Env
+
+    kw = dict(steps_per_epoch=4, epochs=2)
+    j_ap, j_cp, _ = jv.vpg(recording("jax"), jv.VPGConfig(**kw), jcfg,
+                           output_dir=tmp_path / "jax")
+    actor, critic, _ = vpg(recording("port"), VPGConfig(**kw), cfg,
+                           output_dir=tmp_path / "port", device="cpu")
+    assert len(acts["port"]) == len(acts["jax"]) == 2 * 4
+    for g, w in zip(acts["port"], acts["jax"]):
+        assert np.array_equal(g, w)
+
+    def progress(name):
+        rows = (tmp_path / name / "progress.txt").read_text().splitlines()
+        hdr = rows[0].split("\t")
+        return [dict(zip(hdr, r.split("\t"))) for r in rows[1:]]
+
+    want, got = progress("jax"), progress("port")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and g["Epoch"] == w["Epoch"]
+        assert g["AverageReward"] == w["AverageReward"]
+        for k in ("LossPi", "LossV", "AverageVVals"):
+            np.testing.assert_allclose(float(g[k]), float(w[k]), rtol=1e-5,
+                                       atol=EXTRAS_ATOL, err_msg=k)
+    _assert_params_close(actor, critic, j_ap, j_cp)

@@ -7,10 +7,12 @@ end on a tiny 802.11n env, vector rollout equal to sequential, exact resume
 with one env and with two, log truncation on a resume between
 checkpoints), of ``tests/test_dashboard_vpg.py``'s VPG run, of
 ``tests/test_envs.py``'s floor-anneal callback and of
-``tests/test_utils.py``'s experiment-grid tests; plus ``cli train`` under
-``LDPC_TPU_PLATFORM=cpu``, the batched vector rollout, and the checkpoint's
-``weights_only`` load.  Equalities here are exact: the same program on
-the same device, re-run.
+``tests/test_utils.py``'s experiment-grid tests, whose variants, names and
+output directories are also held equal to the JAX package's; plus ``cli
+train`` under ``LDPC_TPU_PLATFORM=cpu``, the batched vector rollout, and
+the checkpoint's ``weights_only`` load.  Equalities here are exact: the
+same program on the same device, re-run.  ``tests/test_torch_ppo.py``
+holds ``ppo`` and ``vpg`` against the JAX package.
 """
 
 import importlib
@@ -32,6 +34,7 @@ from ldpc_tpu_torch.utils import (ExperimentGrid, latest_step,
                                   setup_logger_kwargs)
 
 rl_train = importlib.import_module("ldpc_tpu_torch.rl.train")
+jx_exp = importlib.import_module("ldpc_tpu.utils.experiment")
 
 torch.set_num_threads(1)
 
@@ -302,16 +305,52 @@ def test_setup_logger_kwargs_convention(tmp_path):
     assert kw["output_dir"].endswith("exp/exp_s3")
     kw2 = setup_logger_kwargs("exp", data_dir=str(tmp_path))
     assert kw2["output_dir"].endswith("exp")
+    for args in (("exp", 3), ("exp", None), ("a_b-1", 0)):
+        assert setup_logger_kwargs(*args, data_dir=str(tmp_path)) == \
+            jx_exp.setup_logger_kwargs(*args, data_dir=str(tmp_path))
+
+
+def _both_grids(name, adds):
+    """The same grid built in both packages."""
+    grids = ExperimentGrid(name), jx_exp.ExperimentGrid(name)
+    for g in grids:
+        for args, kw in adds:
+            g.add(*args, **kw)
+    return grids
+
+
+def _assert_grids_equal(port, jax_grid):
+    vs = port.variants()
+    assert vs == jax_grid.variants()
+    assert [port.variant_name(v) for v in vs] == \
+        [jax_grid.variant_name(v) for v in vs]
 
 
 def test_experiment_grid_variants_and_names():
-    g = ExperimentGrid("sweep")
-    g.add("seed", [0, 1], in_name=True)
-    g.add("lr", [1e-3])
+    g, jg = _both_grids("sweep", [(("seed", [0, 1]), {"in_name": True}),
+                                  (("lr", [1e-3]), {})])
     vs = g.variants()
     assert len(vs) == 2
     assert vs[0] == {"seed": 0, "lr": 1e-3}
     assert "see-0" in g.variant_name(vs[0])
+    _assert_grids_equal(g, jg)
+
+
+@pytest.mark.parametrize("name,adds", [
+    ("", [(("ppo_cfg:seed", [0, 1]), {}),
+          (("ppo_cfg:steps_per_epoch", 32), {})]),
+    ("b", [(("env.entropy_bonus", [True, False]), {}),
+           (("x", [3]), {"shorthand": "xx", "in_name": True})]),
+    ("t", [(("snr", [(3.0, 3.5), [4.0]]), {}),
+           (("act", [np.tanh, len]), {"shorthand": "f"}),
+           (("dir", ["a/b c", "D"]), {})]),
+    ("", [(("lr", [1e-3]), {})]),
+], ids=["keys", "bools", "values", "unnamed"])
+def test_experiment_grid_names_agree_with_jax(name, adds):
+    """The port's grid gives the JAX package's variants and names: colon
+    and dotted keys, bools, shorthands, tuples, functions, odd strings, and
+    a grid whose name is empty."""
+    _assert_grids_equal(*_both_grids(name, adds))
 
 
 def test_experiment_grid_runs_the_trainer(tmp_path):
@@ -327,6 +366,10 @@ def test_experiment_grid_runs_the_trainer(tmp_path):
 
     results = g.run(thunk, data_dir=str(tmp_path))
     assert len(results) == 2
+    # the JAX grid calls its thunk with the same arguments
+    calls = jx_exp.ExperimentGrid("t").add("seed", [0, 1]).run(
+        lambda **kw: kw, data_dir=str(tmp_path))
+    assert g.run(lambda **kw: kw, data_dir=str(tmp_path)) == calls
     assert results[1][2].output_dir == tmp_path / "t_see-1" / "t_see-1_s1"
     assert (results[1][2].output_dir / "steps.tsv").exists()
     w = [r[0].state_dict()["encoder.dense.0.weight"] for r in results]
