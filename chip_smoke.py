@@ -141,13 +141,42 @@ no result line:
            ms a step, env step ms, update ms an epoch; one sampling step
            and one iteration of each update under torch.profiler
            (profile_call: device events, busy share).
-15. the kernels line, the card line again, and the result line.
+15. validation the Monte-Carlo validation path, each study at its
+           script's defaults (ldpc_tpu_torch/scripts/): (a) the encoder:
+           4,096 random messages each for near-earth (the generator),
+           802.11n rate 1/2 (the parity part from H) and near-earth with
+           block (0, 0) zeroed (rank 1,020 of 1,022: the column-pivoted
+           path), every syndrome zero on the card from the plan's sparse
+           tables and every codeword equal to the CPU's, and the encoder's
+           time at 32,768 near-earth messages; (b) random_codeword_check
+           (near-earth 3.0/3.4 dB, 802.11n 2.5/3.5 dB, 4,096 words, the
+           torch engine): zero and random agree at every point, each
+           all-zero point in the band of the JAX package's
+           docs/random_codeword.json; (c) the main path's cascade (32,768
+           words, 12 -> 50, capacity 6,144) at 3.0 dB ("many") and 3.4 dB
+           ("few"), with and without sort_words from the same generator
+           state, every output equal; then sort_ab, its speedups logged;
+           (d) staged_decode_counts(pad_to=256) on the cuda engine against
+           the cascade on the same LLRs, a batch above 25% stage-1
+           failures and one below, every output equal; (e) ber_parity
+           (8 points, 16,384 words, torch f32 against cuda bf16 on the
+           same LLRs): the engines' FER intervals overlap and each
+           engine's BER lies in the band of docs/ber_parity.json at every
+           point; the native engine's BER within its CI of the torch
+           engine's on the same 384 words, both agreements logged beside
+           the JAX artifact's; (f) error_floor at full size (1,048,576
+           words a point, 3.6-4.2 dB) and wifi_waterfall on the torch and
+           cuda engines, every FER interval overlapping the JAX package's
+           (docs/error_floor.json, docs/wifi_waterfall.json); (g) `cli
+           getting-started`: the probe OK and the native engine available.
+16. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
 dep_stride replay of phase 11, the microbench script of phase 12, the
-env paths (a), (c) and (d) of phase 13, and the trainer's runs (a) and (d)
-of phase 14) clears the launch counts just before it
+env paths (a), (c) and (d) of phase 13, the trainer's runs (a) and (d)
+of phase 14, and the validation paths (c)-(f) of phase 15 that launch
+a kernel) clears the launch counts just before it
 and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
@@ -155,9 +184,9 @@ it no time.  Launches that compare a kernel with its plain version, or time
 it, are counted on no path.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
-no JAX.  Writes nothing but the kernel build (ldpc_tpu_torch/_build/) and,
-in phase 14, the trainer's logs and checkpoints under a temporary
-directory that it removes.
+no JAX.  Writes nothing but the kernel builds (ldpc_tpu_torch/_build/)
+and, in phases 14 and 15, the trainer's logs and checkpoints and the
+studies' artifacts under temporary directories that it removes.
 """
 
 from __future__ import annotations
@@ -354,6 +383,70 @@ TRAIN_PATHS = {"a": "trainer (a) cli train", "a_resume":
 POLICY_RTOL, POLICY_ATOL = 1e-5, 1e-4
 EXTRAS_ATOL = PARAM_ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 3e-5
+
+# Phase 15, the Monte-Carlo validation path, each study at its script's
+# defaults unless cut here (words only, logged).  (a) encoder words a code;
+# (c) the sorted main path's points and their cascade branch; (d) the
+# staged_decode_counts chunk.
+VAL_ENCODE_WORDS = 4096
+VAL_ENCODE_TIMED = 32768      # the encoder's time at the main path's batch
+VAL_SORT_SNRS = {3.0: "many", 3.4: "few"}
+VAL_PAD_TO = 256
+VAL_RC_ARGS: list[str] = []          # random_codeword_check's defaults
+VAL_PARITY_ARGS: list[str] = []      # ber_parity's defaults
+VAL_FLOOR_ARGS: list[str] = []       # error_floor's defaults (full size)
+VAL_WIFI_ARGS: list[str] = []        # wifi_waterfall's defaults
+VAL_SORT_AB_ARGS: list[str] = []     # sort_ab's defaults
+VAL_PATHS = {"c": "validation (c) sorted main path",
+             "c_ab": "validation (c) sort_ab",
+             "d": "validation (d) staged_decode_counts",
+             "e": "validation (e) ber_parity",
+             "f_floor": "validation (f) error floor",
+             "f_wifi": "validation (f) waterfall --engine cuda"}
+# The JAX package's artifacts (docs/, not copied to the card's machine),
+# each point's band.  (b) docs/random_codeword.json, the all-zero points:
+# (BER, 95% CI half-width).
+JAX_RANDOM_ZERO = {("near-earth", 3.0): (0.01872844658719117,
+                                         0.0002536454659205407),
+                   ("near-earth", 3.4): (0.0003080125424260029,
+                                         6.878955420307008e-05),
+                   ("wifi", 2.5): (0.0055562086066100825,
+                                   0.00033759844204378866),
+                   ("wifi", 3.5): (0.0, 0.0)}
+# (e) docs/ber_parity.json, each point's (BER, 95% CI half-width) of the
+# XLA f32 engine and of the Pallas bf16 kernel, the torch and cuda
+# engines' counterparts (16,384 words a point)
+JAX_PARITY = {
+    2.9914: ((0.019163411657404292, 0.0001233971799675323),
+             (0.01912733999950312, 0.00012319964699367781)),
+    3.0: ((0.01872270587839026, 0.00012647383275367002),
+          (0.01864463522476226, 0.0001262469491676604)),
+    3.1541: ((0.008435057100717801, 0.00014667729657957877),
+             (0.008459744388110016, 0.00014680422170446184)),
+    3.2: ((0.005748651732204011, 0.00013230716994677282),
+          (0.005719567464988992, 0.00013212238682756803)),
+    3.3076: ((0.0015336799994840082, 7.52872880327035e-05),
+             (0.0015598005977862034, 7.592534843414756e-05)),
+    3.4: ((0.00034427829451290365, 3.612893912643886e-05),
+          (0.00033996343146098335, 3.572257017021419e-05)),
+    3.4404: ((0.0001393745556736179, 2.2941779216773292e-05),
+             (0.00013935962535163894, 2.26565864355124e-05)),
+    3.6: ((5.972128791585127e-07, 1.170537243150685e-06),
+          (1.022727055558953e-06, 1.6466126903127342e-06))}
+JAX_NATIVE_AGREEMENT = (0.6536458333333334, 0.9401041666666666)
+# (f) docs/error_floor.json, each point's FER Wilson 95% interval
+# (8,388,608 words a point), and docs/wifi_waterfall.json, each point's
+# frame errors of 8,192 words (its FER x 8,192)
+JAX_FLOOR_FER = {3.6: (0.00017626745995686936, 0.0001946927964908129),
+                 3.8: (2.104282580424869e-08, 6.753298411286634e-07),
+                 4.0: (0.0, 4.5795419701613854e-07),
+                 4.2: (0.0, 4.5795419701613854e-07)}
+JAX_WIFI_WORDS = 8192
+JAX_WIFI_FRAMES = {
+    "0.5000": {-1.0: 2, -0.5: 0, 0.0: 0, 0.5: 0, 1.0: 0},
+    "0.6667": {0.0: 2114, 0.5: 43, 1.0: 0, 1.5: 0},
+    "0.7500": {1.0: 2858, 1.5: 78, 2.0: 1, 2.5: 0},
+    "0.8333": {2.0: 5243, 2.5: 437, 3.0: 7, 3.5: 1, 4.0: 0}}
 
 # The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
 # operations over the float32 peak, which counts a fused multiply-add as 2
@@ -2233,6 +2326,299 @@ def phase_trainer(dev) -> dict:
             "profiled": profiled}
 
 
+def _overlap(a, b) -> bool:
+    """Whether the intervals a = (lo, hi) and b = (lo, hi) overlap."""
+    return a[0] <= b[1] and b[0] <= a[1]
+
+
+def _in_band(ber: float, half: float, ref) -> bool:
+    """Whether a BER and its 95% CI lie within a reference point's band
+    (the two CIs overlap; two zero points agree)."""
+    return abs(ber - ref[0]) <= half + ref[1] or ber == ref[0] == 0.0
+
+
+def _val_record(path: str, keys) -> dict:
+    """The launches of a validation path just run; fails unless each kernel
+    variant of ``keys`` was launched."""
+    got = record_path(path)
+    missing = [k for k in keys if got.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{path}: no launch of {missing} ({got})")
+    return got
+
+
+def _val_encoder(dev, tag: str) -> dict:
+    """(a) 4,096 random messages each for near-earth (the generator),
+    802.11n rate 1/2 (parity_part_from_h) and a rank-deficient code (the
+    column-pivoted path): every syndrome zero on the card, from the plan's
+    sparse tables, and every codeword equal to the CPU's."""
+    from ldpc_tpu_torch.codes.encode import encoder_for_code
+    from ldpc_tpu_torch.codes.perturb import zero_circulant
+    from ldpc_tpu_torch.ops.plan import frame_indices
+    codes = {"near-earth (generator)": near_earth_code(),
+             "802.11n r1/2 (parity part)": wifi_code(1944, 1 / 2),
+             "near-earth, block (0, 0) zeroed (column-pivoted)":
+                 zero_circulant(near_earth_code(), 0, 0)}
+    out = {}
+    for i, (name, code) in enumerate(codes.items()):
+        enc = encoder_for_code(code)
+        prefix = np.array_equal(enc.info_positions, np.arange(enc.k_eff))
+        path = ("generator" if code.shifts == near_earth_code().shifts
+                else "prefix" if prefix else "column-pivoted")
+        gen = torch.Generator(device=dev).manual_seed(SEED + i)
+        msgs = torch.randint(0, 2, (VAL_ENCODE_WORDS, enc.k_eff),
+                             generator=gen, dtype=torch.int8, device=dev)
+        cw = enc(msgs)
+        f = frame_indices(DecodePlan.from_code(code))
+        var = torch.as_tensor(f["var_idx"], device=dev)
+        valid = torch.as_tensor(f["cn_valid"], device=dev)
+        parity = ((cw[:, var].long() * valid).sum(-1) % 2)
+        bad_syn = int(parity.any(-1).sum())
+        info = torch.as_tensor(enc.info_positions, device=dev)
+        bad_msg = int((cw[:, info] != msgs).any(-1).sum())
+        cpu = enc(msgs.cpu())
+        bad_cpu = int((cw.cpu() != cpu).sum())
+        out[name] = {"k_eff": enc.k_eff, "path": path,
+                     "nonzero_syndromes": bad_syn,
+                     "message_mismatches": bad_msg,
+                     "bits_differing_from_cpu": bad_cpu}
+        log(tag, f"(a) {name}: k_eff {enc.k_eff} ({path}), "
+            f"{VAL_ENCODE_WORDS} words: {bad_syn} nonzero syndromes (plan "
+            f"tables), {bad_msg} messages altered, {bad_cpu} bits differing "
+            f"from the CPU's")
+        if path != ("generator", "prefix", "column-pivoted")[i]:
+            raise AssertionError(f"{name}: encoded by the {path} path")
+        if bad_syn or bad_msg or bad_cpu:
+            raise AssertionError(f"encoder {name}: {out[name]}")
+    enc = encoder_for_code(near_earth_code())
+    msgs = torch.randint(0, 2, (VAL_ENCODE_TIMED, enc.k_eff),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED), dtype=torch.int8, device=dev)
+    ms = time_ms(lambda: enc(msgs), dev, reps=KERNEL_REPS)
+    out["near_earth_ms"] = ms
+    log(tag, f"(a) near-earth encoder, {VAL_ENCODE_TIMED} messages: {ms:.3f} "
+        f"ms (a [{VAL_ENCODE_TIMED}, {enc.k_eff}] x [{enc.k_eff}, 1022] "
+        "float32 product, % 2, two scatters)")
+    return out
+
+
+def _val_sorted(dev, code, tag: str) -> dict:
+    """(c) the main path's cascade with and without sort_words from the
+    same generator state: every output equal, each point's branch."""
+    kw = dict(phase1_iters=PHASE1_ITERS, redo_capacity=REDO_CAP,
+              engine="cuda", device=dev)
+    plain = make_staged_sweep_device(code, MAX_ITERS, **kw)
+    sort = make_staged_sweep_device(code, MAX_ITERS, sort_words=True, **kw)
+    out = {}
+    clear_launches()
+    for snr, branch in VAL_SORT_SNRS.items():
+        snr_db = torch.full((BATCH,), snr, dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + int(snr * 10))
+        state = gen.get_state()
+        want = plain(snr_db, generator=gen)
+        got_branch = plain.decoder.last_branches
+        gen.set_state(state)
+        got = sort(snr_db, generator=gen)
+        bad = {k: int((want[k] != got[k]).sum()) for k in want}
+        out[snr] = {"branch": got_branch, "differing": bad,
+                    "failures": int((~want["success"]).sum())}
+        log(tag, f"(c) {snr} dB, {BATCH} words: branch {got_branch} (sorted "
+            f"{sort.decoder.last_branches}), outputs differing {bad}")
+        if any(bad.values()) or got_branch != [branch] or \
+                sort.decoder.last_branches != [branch]:
+            raise AssertionError(f"sort_words at {snr} dB: {out[snr]}")
+    out["launches"] = _val_record(VAL_PATHS["c"],
+                                  [key("min-sum", "bfloat16")])
+    return out
+
+
+def _val_staged_counts(dev, code, tag: str) -> dict:
+    """(d) staged_decode_counts(pad_to=256) on the cuda engine against the
+    cascade on the same LLRs, above and below 25% stage-1 failures."""
+    from ldpc_tpu_torch.sim.evaluate import staged_decode_counts
+    # capacity B/4: the cascade's branch is "many" exactly where
+    # staged_decode_counts decodes the whole batch again (> 25% failures)
+    cascade = StagedDecoder(code, MAX_ITERS, phase1_iters=PHASE1_ITERS,
+                            redo_capacity=BATCH // 4, engine="cuda",
+                            device=dev)
+    out = {}
+    clear_launches()
+    for snr in VAL_SORT_SNRS:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100 + int(snr))
+        llr = llr_batch(code, BATCH, snr, gen, dev)
+        want = [x.cpu().numpy() for x in cascade(llr)]
+        got = staged_decode_counts(code, llr, MAX_ITERS,
+                                   phase1_iters=PHASE1_ITERS,
+                                   pad_to=VAL_PAD_TO, engine="cuda")
+        bad = sum(int((np.asarray(a) != b).sum()) for a, b in zip(got, want))
+        out[snr] = {"branch": cascade.last_branches, "differing": bad}
+        log(tag, f"(d) {snr} dB, {BATCH} words: cascade branch "
+            f"{cascade.last_branches}; staged_decode_counts(pad_to="
+            f"{VAL_PAD_TO}) differs on {bad} outputs")
+        if bad:
+            raise AssertionError(f"staged_decode_counts at {snr} dB: {bad}")
+    if [out[s]["branch"] for s in VAL_SORT_SNRS] != [["many"], ["few"]]:
+        raise AssertionError(f"(d) wants a batch above and one below 25% "
+                             f"failures: {out}")
+    out["launches"] = _val_record(VAL_PATHS["d"],
+                                  [key("min-sum", "bfloat16")])
+    return out
+
+
+def phase_validation(dev) -> dict:
+    """The Monte-Carlo validation path: (a) the encoder; (b) random
+    codewords; (c) the sorted main path and sort_ab; (d)
+    staged_decode_counts; (e) ber_parity; (f) the error floor and the
+    802.11n waterfall on both engines; (g) cli getting-started.  Each study
+    writes its artifact into a temporary directory that is removed."""
+    import tempfile
+    from ldpc_tpu_torch.scripts import (ber_parity, error_floor,
+                                        random_codeword_check, sort_ab,
+                                        wifi_waterfall)
+    from ldpc_tpu_torch.sim.stats import wilson_interval
+    tag = "15valid"
+    code = near_earth_code()
+    out = {}
+    timed = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        timed[name] = time.perf_counter() - t0
+        return res
+
+    out["encoder"] = step("a", lambda: _val_encoder(dev, tag))
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) random codewords, the torch engine (no kernel)
+        rc = step("b", lambda: random_codeword_check.main(
+            VAL_RC_ARGS + ["--out", f"{tmp}/random_codeword"]))
+        for name, entry in rc["codes"].items():
+            for pt in entry["points"]:
+                z, r = pt["zero"], pt["random"]
+                ref = JAX_RANDOM_ZERO[(name, pt["snr_db"])]
+                band = _in_band(z["ber"], z["ci95_half"], ref)
+                log(tag, f"(b) {name} {pt['snr_db']} dB, "
+                    f"{rc['words_per_point']} words: zero {z['ber']:.4e} ± "
+                    f"{z['ci95_half']:.1e}, random {r['ber']:.4e} ± "
+                    f"{r['ci95_half']:.1e}: agree {pt['agree_within_ci']}; "
+                    f"zero vs JAX {ref[0]:.4e} ± {ref[1]:.1e}: "
+                    f"{'in band' if band else 'OUT OF BAND'}")
+                if not (pt["agree_within_ci"] and band):
+                    raise AssertionError(f"(b) {name} {pt['snr_db']} dB")
+        out["random_codeword"] = rc
+
+        # (c) the sorted main path, then sort_ab at its defaults
+        out["sorted"] = step("c", lambda: _val_sorted(dev, code, tag))
+        clear_launches()
+        ab = step("c_ab", lambda: sort_ab.main(
+            VAL_SORT_AB_ARGS + ["--out", f"{tmp}/sort_ab"]))
+        _val_record(VAL_PATHS["c_ab"], [key("min-sum", "bfloat16")])
+        log(tag, "(c) sort_ab: speedup sorted/unsorted " + ", ".join(
+            f"{s} dB {r['speedup']:.4f}" for s, r in ab["points"].items())
+            + f"; adopt {ab['adopt']} (threshold {ab['adopt_threshold']})")
+        out["sort_ab"] = ab
+
+        # (d) staged_decode_counts against the cascade
+        out["staged_counts"] = step("d", lambda: _val_staged_counts(
+            dev, code, tag))
+
+        # (e) ber_parity: both engines on the same LLRs, the native engine
+        clear_launches()
+        bp = step("e", lambda: ber_parity.main(
+            VAL_PARITY_ARGS + ["--out", f"{tmp}/ber_parity"]))
+        _val_record(VAL_PATHS["e"], [key("min-sum", "bfloat16")])
+        for snr_s, pt in bp["points"].items():
+            ok = pt["fer_overlap"]
+            for name, ref in zip(("torch_f32", "cuda_bf16"),
+                                 JAX_PARITY[float(snr_s)]):
+                e = pt[name]
+                inb = _in_band(e["ber"], e["ber_ci95_half"], ref)
+                ok &= inb
+                log(tag, f"(e) {snr_s} dB {name}: BER {e['ber']:.4e} ± "
+                    f"{e['ber_ci95_half']:.1e} FER {e['fer']:.5f} "
+                    f"[{e['fer_ci95'][0]:.5f}, {e['fer_ci95'][1]:.5f}]; JAX "
+                    f"{ref[0]:.4e} ± {ref[1]:.1e}: "
+                    f"{'in band' if inb else 'OUT OF BAND'}")
+            log(tag, f"(e) {snr_s} dB: engines' FER intervals overlap "
+                f"{pt['fer_overlap']}, BERs agree {pt['engines_agree']}")
+            if not ok:
+                raise AssertionError(f"(e) {snr_s} dB: {pt}")
+        nat = bp["native_crosscheck"]
+        if not isinstance(nat, dict):
+            raise AssertionError(f"(e) native engine: {nat}")
+        nat_ok = abs(nat["ber"] - nat["torch_ber_same_words"]) <= \
+            nat["ber_ci95_half"]
+        log(tag, f"(e) native engine, {nat['words']} words at "
+            f"{nat['snr_db']} dB: BER {nat['ber']:.4e} ± "
+            f"{nat['ber_ci95_half']:.1e}, torch engine on the same words "
+            f"{nat['torch_ber_same_words']:.4e}: "
+            f"{'within' if nat_ok else 'OUTSIDE'} its CI; word-exact "
+            f"{nat['word_exact_agreement']:.3f}, iterations "
+            f"{nat['iters_exact_agreement']:.3f} (the JAX artifact's: "
+            f"{JAX_NATIVE_AGREEMENT[0]:.3f}, {JAX_NATIVE_AGREEMENT[1]:.3f}); "
+            f"{nat['cpu_seconds']:.1f} s on the host")
+        if not nat_ok:
+            raise AssertionError(f"(e) native engine: {nat}")
+        out["ber_parity"] = bp
+
+        # (f) the error floor at full size, then the waterfall twice
+        clear_launches()
+        fl = step("f_floor", lambda: error_floor.main(
+            VAL_FLOOR_ARGS + ["--out", f"{tmp}/error_floor",
+                              "--checkpoint", f"{tmp}/floor.npz"]))
+        _val_record(VAL_PATHS["f_floor"], [key("min-sum", "bfloat16")])
+        for pt in fl["points"]:
+            ref = JAX_FLOOR_FER[pt["snr_db"]]
+            ok = _overlap(pt["fer_wilson95"], ref)
+            log(tag, f"(f) floor {pt['snr_db']} dB, {pt['words']} words: "
+                f"BER {pt['ber']:.3e}, FER {pt['fer']:.3e} "
+                f"[{pt['fer_wilson95'][0]:.2e}, {pt['fer_wilson95'][1]:.2e}]"
+                f" vs JAX [{ref[0]:.2e}, {ref[1]:.2e}]: "
+                f"{'overlap' if ok else 'DISJOINT'}")
+            if not ok:
+                raise AssertionError(f"(f) floor {pt}")
+        log(tag, f"(f) error floor: {fl['elapsed_s']:.2f} s for "
+            f"{len(fl['points'])} points")
+        out["error_floor"] = fl
+        out["wifi"] = {}
+        for engine in ("torch", "cuda"):
+            clear_launches()
+            ww = step(f"f_wifi_{engine}", lambda: wifi_waterfall.main(
+                VAL_WIFI_ARGS + ["--engine", engine,
+                                 "--out", f"{tmp}/wifi_{engine}"]))
+            if engine == "cuda":
+                _val_record(VAL_PATHS["f_wifi"],
+                            [key("sum-product", "float32")])
+            for rate_s, pts in ww["rates"].items():
+                for pt in pts:
+                    frames = JAX_WIFI_FRAMES[rate_s][pt["snr_db"]]
+                    ref = wilson_interval(frames, JAX_WIFI_WORDS)[1:]
+                    ok = _overlap(pt["fer_ci95"], ref)
+                    if not ok or frames:
+                        log(tag, f"(f) waterfall {engine} r{rate_s} "
+                            f"{pt['snr_db']} dB: FER {pt['fer']:.5f} "
+                            f"[{pt['fer_ci95'][0]:.5f}, "
+                            f"{pt['fer_ci95'][1]:.5f}] vs JAX "
+                            f"[{ref[0]:.5f}, {ref[1]:.5f}]: "
+                            f"{'overlap' if ok else 'DISJOINT'}")
+                    if not ok:
+                        raise AssertionError(f"(f) waterfall {engine} "
+                                             f"r{rate_s} {pt}")
+            log(tag, f"(f) waterfall, {engine} engine: every point "
+                f"overlaps the JAX package's ({ww['elapsed_s']:.1f} s)")
+            out["wifi"][engine] = ww
+
+    # (g) the CLI's environment check on the card
+    gs = step("g", lambda: cli.main(["getting-started"]))
+    log(tag, f"(g) cli getting-started: {gs}")
+    if gs["probe"] != "OK" or not gs["native"]:
+        raise AssertionError(f"(g) getting-started: {gs}")
+    log(tag, "seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in timed.items()))
+    out["seconds"] = timed
+    return out
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -2288,6 +2674,7 @@ def run(dev: torch.device) -> dict:
     mb = phase_microbench(dev)
     env = phase_env(dev)
     trainer = phase_trainer(dev)
+    validation = phase_validation(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -2354,7 +2741,8 @@ def run(dev: torch.device) -> dict:
     kernels = {"kernels": rows}
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main, "split": split,
-            "microbench": mb, "env": env, "trainer": trainer}
+            "microbench": mb, "env": env, "trainer": trainer,
+            "validation": validation}
 
 
 def main() -> int:

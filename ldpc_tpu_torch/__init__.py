@@ -5,9 +5,9 @@ sub-packages mirror ``ldpc_tpu`` so each module's counterpart is easy to
 find:
 
   codes/   QC shift tables, the JSON code format and the reference's file
-           formats, the observation codec, CCSDS near-earth, the IEEE
-           802.11n n = 1944 family, synthetic QC codes, the zeroed-circulant
-           suite
+           formats, the observation codec, CCSDS near-earth and its
+           generator, the IEEE 802.11n n = 1944 family, synthetic QC codes,
+           the zeroed-circulant suite, the systematic encoder
   ops/     decode plans; the fused decode kernel (``csrc/decode.cu``), its
            plain PyTorch versions and wrapper (``ops/cuda_static.py``); the
            phase-split pair (``csrc/split.cu``, ``ops/cuda_split.py``); the
@@ -15,7 +15,9 @@ find:
            (``ops/decoder.py``); the dynamic-plan decoder
            (``ops/dynamic.py``); the f64 oracle
   sim/     BPSK/AWGN channel, Monte-Carlo sweeps (``evaluate_code``, the
-           staged cascade), BER/FER statistics, the code-search reward
+           staged cascade, ``sort_words``, random codewords, the
+           host-staged ``staged_decode_counts``), BER/FER statistics, the
+           code-search reward
   envs/    the code-search env (``LdpcCodeSearchEnv``: each candidate
            decoded by the fused kernel on the card, by ``ops/dynamic.py``
            on the CPU) and its vector container
@@ -23,11 +25,15 @@ find:
            rollout, exact resume) and VPG, the trainer's entry point, the
            random-search baseline
   utils/   device selection, the bounded cache, the experiment loggers,
-           checkpoints (``torch.save``), experiment grids
+           checkpoints (``torch.save``), experiment grids, the
+           configuration, artifact provenance
+  native/  the C++ min-sum host engine (g++ + ctypes)
+  analysis/ evaluation plots
   csrc/    CUDA sources and their nvcc + ctypes build
-  scripts/ ``python -m ldpc_tpu_torch.scripts.split_ab``
+  scripts/ ``python -m ldpc_tpu_torch.scripts.<name>``: the A/Bs, the
+           microbenchmark, the SASS counts, the validation studies
   cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe|random-agent|
-           perturb|train``
+           perturb|train|getting-started``
 
 Entry points run on the card unless called with ``device="cpu"``.
 
@@ -44,4 +50,5 @@ Quick start (on the card)::
 
 __version__ = "0.2.0"
 
-__all__ = ["codes", "ops", "sim", "envs", "rl", "utils", "csrc", "scripts"]
+__all__ = ["codes", "ops", "sim", "envs", "rl", "utils", "native",
+           "analysis", "csrc", "scripts"]

@@ -1,6 +1,6 @@
 """Command-line entry points of the port: ``python -m ldpc_tpu_torch.cli``.
 
-The counterpart of ``python -m ldpc_tpu.cli`` for six of its commands,
+The counterpart of ``python -m ldpc_tpu.cli`` for seven of its commands,
 with the same arguments and defaults:
 
   evaluate     BER/FER sweep of a code on the card
@@ -11,6 +11,8 @@ with the same arguments and defaults:
   perturb      write the zeroed-circulant robustness suite
   train        PPO code search (``rl/train.py``; its arguments follow the
                command, after an optional ``--``)
+  getting-started  environment check: torch and the card, a 1-flip
+               802.11n probe, the native engine
 
 Engines: ``--engine torch`` is the counterpart of ``xla`` (plain torch
 ops), ``--engine cuda`` of ``pallas`` (the CUDA kernel: flooding or
@@ -53,10 +55,7 @@ def cmd_evaluate(args):
     from .sim import evaluate_code
     if args.sharded:
         raise NotImplementedError(
-            "--sharded waits for parallel/, ROADMAP.md Queue A item 7")
-    if args.plot:
-        raise NotImplementedError(
-            "--plot waits for analysis/, ROADMAP.md Queue A item 8")
+            "--sharded waits for parallel/, ROADMAP.md Queue A item 2")
     if args.tile_b is not None and args.engine != "cuda":
         raise SystemExit("--tile-b is a kernel scheduling lever; combine it "
                          "with --engine cuda")
@@ -66,17 +65,31 @@ def cmd_evaluate(args):
     # means an unstaged decode)
     phases = [int(p) for p in str(args.phase_iters).split(",")
               if int(p) < args.iterations]
+    staged = not args.no_staged and bool(phases)
+    if args.codewords == "random":
+        if (args.engine != "torch" or args.schedule != "flooding"
+                or args.store_dtype or args.tile_b is not None):
+            raise SystemExit(
+                "--codewords random runs the torch engine unstaged "
+                "(flooding, f32): drop --engine/--schedule/--store-dtype/"
+                "--tile-b rather than having them silently ignored")
+        staged = False
     stats = evaluate_code(
         code, args.snr, args.transmissions, args.iterations,
         seed=args.seed, batch_size=args.batch_size, kind=args.kind,
         scale_llr=(args.kind == "sum-product"), engine=args.engine,
-        staged=not args.no_staged and bool(phases), phase1_iters=phases,
+        staged=staged, phase1_iters=phases,
         store_dtype=args.store_dtype, schedule=args.schedule,
         tile_b=args.tile_b, sort_words=args.sort_words,
         codewords=args.codewords, checkpoint_path=args.checkpoint,
         early_abort_ber=args.early_abort_ber, verbose=True,
         device=_device())
     print(json.dumps(stats.summary()))
+    if args.plot:
+        from .analysis import plot_snr_vs_ber
+        (_, _, _, axis, _, ber, _) = stats.get_stats_v2()
+        plot_snr_vs_ber(axis, ber, file_name=args.plot)
+        print(f"wrote {args.plot}", file=sys.stderr)
     return stats
 
 
@@ -157,6 +170,37 @@ def cmd_train(args):
     return train_main(args.rest, device=_device())
 
 
+def cmd_getting_started(args):
+    """Environment check (gettingStarted.py equivalent); returns the
+    probe's outcome and whether the native engine is available."""
+    import torch
+    dev = _device()
+    if dev is None and torch.cuda.is_available():
+        cuda = (f"cuda {torch.version.cuda}; devices: "
+                f"{torch.cuda.device_count()} x "
+                f"{torch.cuda.get_device_name(0)}")
+    else:
+        cuda = "devices: cpu" + ("" if torch.cuda.is_available()
+                                 else " (no CUDA device)")
+    print(f"torch {torch.__version__}; {cuda}")
+    from .codes import near_earth_code, wifi_code
+    ne = near_earth_code()
+    print(f"near-earth: ({ne.n}, {ne.k}), {ne.block_rows}x"
+          f"{ne.block_cols} blocks of Z={ne.z}")
+    from .sim import evaluate_epsilon_probe
+    unc, dec, iters, ok = evaluate_epsilon_probe(
+        wifi_code(), flips=(0,), max_iters=10, device=dev)
+    status = "OK" if (ok and dec == 0) else "FAILED"
+    print(f"decoder smoke test (1 flip on 802.11n): {status} "
+          f"({iters} iterations)")
+    from . import native
+    have_native = native.available()
+    print(f"native C++ engine: "
+          f"{'available' if have_native else 'unavailable'}")
+    print("ready — see README.md for the API tour")
+    return {"probe": status, "iterations": iters, "native": have_native}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ldpc_tpu_torch", description=__doc__,
                                 formatter_class=argparse.
@@ -198,12 +242,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save statistics after every SNR point and resume "
                         "past completed points on restart")
     e.add_argument("--sort-words", action="store_true",
-                   help="difficulty-sort the batch before decoding (not "
-                        "ported yet)")
+                   help="difficulty-sort the batch before decoding "
+                        "(bit-identical outputs; an order of work only)")
     e.add_argument("--codewords", default="zero",
                    choices=["zero", "random"],
-                   help="'random' transmits encoded random messages (not "
-                        "ported yet)")
+                   help="'random' transmits encoded random messages and "
+                        "counts errors vs the transmitted word (validates "
+                        "the all-zero protocol; ldpc.py:409-416 done "
+                        "right; torch engine, unstaged)")
     e.add_argument("--early-abort-ber", type=float, default=None,
                    help="stop the sweep once a point's BER exceeds this "
                         "reference value (ldpc.py:473-475)")
@@ -247,6 +293,9 @@ def build_parser() -> argparse.ArgumentParser:
                         add_help=False)
     tr.add_argument("rest", nargs="*", help="args passed to rl.train")
     tr.set_defaults(fn=cmd_train)
+
+    gs = sub.add_parser("getting-started", help="environment sanity check")
+    gs.set_defaults(fn=cmd_getting_started)
     return p
 
 

@@ -39,6 +39,7 @@ __all__ = [
     "bits_to_hex",
     "read_qc_parity",
     "read_qc_generator_rows",
+    "generator_rows_from_hex",
     "read_dense_generator",
     "code_to_dict",
     "code_from_dict",
@@ -115,9 +116,15 @@ def read_qc_generator_rows(path, k: int, z: int) -> np.ndarray:
     Returns an ``[k // z, 2, z]`` int32 array of first rows of the dense
     (non-identity) part A, where G = [I_k | A].
     """
-    pad = (4 - z % 4) % 4
     lines = [ln.strip() for ln in pathlib.Path(path).read_text().splitlines()
              if ln.strip()]
+    return generator_rows_from_hex(lines, k, z)
+
+
+def generator_rows_from_hex(lines, k: int, z: int) -> np.ndarray:
+    """The ``[k // z, 2, z]`` first rows of :func:`read_qc_generator_rows`
+    from its hex lines (two a block row, ``z + pad`` bits each)."""
+    pad = (4 - z % 4) % 4
     kb = k // z
     if len(lines) != 2 * kb:
         raise ValueError(f"expected {2 * kb} hex lines, got {len(lines)}")

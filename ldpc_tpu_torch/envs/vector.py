@@ -52,7 +52,7 @@ class EnvironmentVector:
                  **env_kwargs):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= waits for parallel/, ROADMAP.md Queue A item 7")
+                "mesh= waits for parallel/, ROADMAP.md Queue A item 2")
         if isinstance(env_fns, int):
             self.envs = [LdpcCodeSearchEnv(**env_kwargs)
                          for _ in range(env_fns)]

@@ -91,7 +91,7 @@ class PPOConfig:
 def _no_mesh(mesh, name: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{name}= waits for parallel/, ROADMAP.md Queue A item 7")
+            f"{name}= waits for parallel/, ROADMAP.md Queue A item 2")
 
 
 def make_update_fns(cfg: ActorCriticConfig, ppo_cfg: PPOConfig,

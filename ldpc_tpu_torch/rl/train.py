@@ -24,7 +24,7 @@ def dryrun_train_step(mesh) -> None:
     ``parallel/``."""
     raise NotImplementedError(
         "dryrun_train_step shards the update batch over a mesh: it waits "
-        "for parallel/, ROADMAP.md Queue A item 7")
+        "for parallel/, ROADMAP.md Queue A item 2")
 
 
 def main(argv=None, device=None):

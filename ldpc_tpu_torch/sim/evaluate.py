@@ -24,7 +24,22 @@ replaced:
   only those rows.  A kernel with one block per word needs no tile padding.
 
 "few" and "many" decode the same words the same way, so the branch changes
-only the cost, never the result.
+only the cost, never the result.  ``sort_words`` orders a batch by its
+hard-decision error count against the all-zero word (a stable sort, as
+JAX's) before the cascade and puts every output back in the caller's
+order: with one block per word it changes only the order of work, and
+every output is bit-identical.
+
+``staged_decode_counts`` is the JAX package's host-staged two-phase decode:
+one read after the first phase, then the whole batch again above 25%
+failures, else fixed ``min(pad_to, B)``-word chunks of the failures padded
+with word 0, whose extra rows are discarded.
+
+``codewords="random"`` (``random_codeword_sweep_step``) transmits
+systematically encoded uniform messages (``codes/encode.py``) and counts
+errors against the transmitted word on the torch engine, which returns
+its hard decisions; it validates the all-zero protocol that every other
+path relies on.
 
 ``evaluate_code`` keeps the JAX loop over points and batches: batch
 ``done_words`` of point ``s_idx`` draws its noise from a Philox generator
@@ -43,17 +58,18 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..codes.encode import encoder_for_code
 from ..codes.qc import QCCode
 from ..ops.cuda_static import make_static_sweep_decoder
 from ..ops.decoder import decoder_for_code
 from ..utils.device import resolve_device
-from .channel import awgn, epsilon_probe, llr_from_channel
+from .channel import awgn, epsilon_probe, llr_from_channel, modulate, slicer
 from .stats import BerStatistics
 
 __all__ = ["ENGINES", "batch_seed", "default_redo_capacity",
            "evaluate_code", "evaluate_epsilon_probe", "sweep_step",
-           "make_staged_decoder_device", "make_staged_sweep_device",
-           "staged_decode_counts"]
+           "random_codeword_sweep_step", "make_staged_decoder_device",
+           "make_staged_sweep_device", "staged_decode_counts"]
 
 ENGINES = ("torch", "cuda")
 
@@ -69,10 +85,10 @@ def default_redo_capacity(b: int, engine: str = "cuda") -> int:
     return min(c, b)
 
 
-def _refuse_later_options(*, engine, store_dtype, schedule, tile_b,
-                          sort_words, dep_stride, popcount_sign):
+def _refuse_options(*, engine, store_dtype, schedule, tile_b, dep_stride,
+                   popcount_sign):
     """Options that the engine does not take, with the JAX package's
-    exception types, and those this port does not carry (yet)."""
+    exception types."""
     if engine not in ENGINES:
         raise ValueError(f"unknown decode engine: {engine}")
     if schedule != "flooding" and engine != "cuda":
@@ -85,9 +101,6 @@ def _refuse_later_options(*, engine, store_dtype, schedule, tile_b,
     if tile_b is not None:
         raise ValueError("tile_b is a pallas-engine scheduling lever; the "
                          "port's engines run one word per block")
-    if sort_words:
-        raise NotImplementedError(
-            "sort_words waits in ROADMAP.md Queue A item 2")
     if engine == "torch" and store_dtype is not None:
         raise ValueError("store_dtype is a cuda-engine option (the torch "
                          "engine's compute dtype is `dtype`)")
@@ -118,7 +131,9 @@ class StagedDecoder:
     ``phase1_iters`` -> ``max_iters``.  ``last_branches`` records, for the
     last call, each re-decode stage's branch: "few" (only the failures),
     "many" (the whole batch) or "none" (nothing failed).  An empty
-    ``phase1_iters`` is one straight ``max_iters`` decode."""
+    ``phase1_iters`` is one straight ``max_iters`` decode.  ``sort_words``
+    runs the cascade in the order of each word's hard-decision error count
+    (stable) and returns the outputs in the caller's order."""
 
     def __init__(self, code: QCCode, max_iters: int = 50, *,
                  phase1_iters: int | Sequence[int] = 12,
@@ -128,10 +143,9 @@ class StagedDecoder:
                  engine: str = "torch", tile_b: int | None = None,
                  sort_words: bool = False, dep_stride: int | None = None,
                  popcount_sign: bool | None = None, device=None):
-        _refuse_later_options(engine=engine, store_dtype=store_dtype,
-                              schedule=schedule, tile_b=tile_b,
-                              sort_words=sort_words, dep_stride=dep_stride,
-                              popcount_sign=popcount_sign)
+        _refuse_options(engine=engine, store_dtype=store_dtype,
+                        schedule=schedule, tile_b=tile_b,
+                        dep_stride=dep_stride, popcount_sign=popcount_sign)
         phases = ([int(phase1_iters)] if isinstance(phase1_iters, int)
                   else [int(p) for p in phase1_iters])
         if sorted(phases) != phases or (phases and phases[-1] >= max_iters):
@@ -145,6 +159,7 @@ class StagedDecoder:
                              "stage")
         self.caps = caps
         self.engine = engine
+        self.sort_words = bool(sort_words)
         self.device = resolve_device(device)
         self.decoders = [_engine_counts_fn(
             code, it, kind=kind, dtype=dtype, engine=engine,
@@ -162,6 +177,16 @@ class StagedDecoder:
                 default_redo_capacity(b, self.engine) for c in self.caps]
 
     def __call__(self, llr: torch.Tensor):
+        if not self.sort_words:
+            return self._cascade(llr)
+        unc = (llr > 0).sum(1, dtype=torch.int32)
+        order = torch.argsort(unc, stable=True)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        out = self._cascade(llr.index_select(0, order))
+        return tuple(x.index_select(0, inv) for x in out)
+
+    def _cascade(self, llr: torch.Tensor):
         errors, iters, success = self.decoders[0](llr)
         branches = []
         for decode, cap in zip(self.decoders[1:],
@@ -195,10 +220,62 @@ def make_staged_decoder_device(code: QCCode, max_iters: int = 50,
 
 
 def staged_decode_counts(code: QCCode, llr: torch.Tensor,
-                         max_iters: int = 50, **staged_kw):
-    """One-shot staged decode on ``llr``'s device; numpy outputs."""
-    dec = StagedDecoder(code, max_iters, device=llr.device, **staged_kw)
-    return tuple(x.cpu().numpy() for x in dec(llr))
+                         max_iters: int = 50, *, phase1_iters: int = 12,
+                         pad_to: int = 256, kind: str = "min-sum",
+                         dtype=torch.float32, engine: str = "torch",
+                         **decoder_kw):
+    """Two-phase decode on ``llr``'s device with exactly the semantics of a
+    single ``max_iters`` decode, staged on the host.
+
+    Phase 1 decodes the whole batch with ``phase1_iters``; the words that
+    failed are decoded again from scratch with ``max_iters``: the whole
+    batch when more than a quarter failed, else the failures in fixed
+    chunks of ``min(pad_to, B)`` words, the last padded with word 0 and its
+    extra rows discarded.  Latching makes the merged outputs those of one
+    straight decode.  ``decoder_kw``: the cuda engine's ``store_dtype``,
+    ``schedule``, ``popcount_sign``, ``dep_stride``.
+
+    Returns (bit_errors[B] int64, iterations[B], success[B]) as numpy
+    arrays.
+    """
+    opts = dict(store_dtype=None, schedule="flooding", popcount_sign=None,
+                dep_stride=None)
+    unknown = set(decoder_kw) - set(opts)
+    if unknown:
+        raise ValueError(f"unsupported decoder options: {sorted(unknown)}")
+    opts.update(decoder_kw)
+    _refuse_options(engine=engine, tile_b=None, **opts)
+
+    def counts(iters):
+        fn = _engine_counts_fn(code, iters, kind=kind, dtype=dtype,
+                               engine=engine, device=llr.device, **opts)
+        return lambda x: [t.cpu().numpy() for t in fn(x)]
+
+    b = llr.shape[0]
+    e1, iters, success = counts(phase1_iters)(llr)
+    errors = e1.astype(np.int64)
+    failed = np.flatnonzero(~success)
+    if failed.size:
+        full = counts(max_iters)
+        if failed.size > 0.25 * b:
+            # below the waterfall most words miss phase 1: decoding the
+            # whole batch again beats the gather
+            e2, it2, ok2 = full(llr)
+            errors[failed] = e2[failed]
+            iters[failed] = it2[failed]
+            success[failed] = ok2[failed]
+        else:
+            chunk = min(pad_to, b)
+            for lo in range(0, failed.size, chunk):
+                part = failed[lo:lo + chunk]
+                idx = np.concatenate(
+                    [part, np.zeros(chunk - part.size, np.int64)])
+                e2, it2, ok2 = full(llr.index_select(
+                    0, torch.as_tensor(idx, device=llr.device)))
+                errors[part] = e2[:part.size]
+                iters[part] = it2[:part.size]
+                success[part] = ok2[:part.size]
+    return errors, iters, success
 
 
 def transmit(n: int, snr_db: torch.Tensor, *,
@@ -274,6 +351,65 @@ def sweep_step(code: QCCode, max_iters: int = 50, *, kind: str = "min-sum",
                        dtype=dtype, engine="torch")
 
 
+class RandomCodewordSweep:
+    """``step(snr_db[B], generator=None) -> dict`` of one Monte-Carlo batch
+    of random codewords: uniform messages and then the noise, both from
+    ``generator`` (else the one given when the step was built), a
+    systematic encode, BPSK + AWGN, a torch-engine decode, and the bit
+    errors counted against the transmitted word.  The keys are those of
+    :class:`StagedSweep`."""
+
+    def __init__(self, code: QCCode, max_iters: int = 50, *,
+                 kind: str = "min-sum", scale_llr: bool = False,
+                 dtype=torch.float32, device=None,
+                 generator: torch.Generator | None = None):
+        self.encoder = encoder_for_code(code)
+        self.decoder = decoder_for_code(code, max_iters, kind=kind,
+                                        dtype=dtype)
+        self.scale_llr = scale_llr
+        self.device = resolve_device(device)
+        self.generator = generator
+
+    def __call__(self, snr_db, generator: torch.Generator | None = None
+                 ) -> dict:
+        snr_db = torch.as_tensor(snr_db, dtype=torch.float32,
+                                 device=self.device)
+        gen = self.generator if generator is None else generator
+        msgs = torch.randint(0, 2, (snr_db.shape[0], self.encoder.k_eff),
+                             generator=gen, dtype=torch.int8,
+                             device=self.device)
+        cw = self.encoder(msgs)
+        noisy, sigma, sigma_actual = awgn(modulate(cw), snr_db,
+                                          generator=gen)
+        llr = llr_from_channel(noisy, sigma) if self.scale_llr else noisy
+        res = self.decoder(llr)
+        return {
+            "errors_uncoded": (slicer(noisy) != cw).sum(-1,
+                                                        dtype=torch.int32),
+            "errors_decoded": (res.hard != cw).sum(-1, dtype=torch.int32),
+            "iterations": res.iterations,
+            "success": res.success,
+            "sigma": sigma,
+            "sigma_actual": sigma_actual,
+        }
+
+
+def random_codeword_sweep_step(code: QCCode, max_iters: int = 50, *,
+                               kind: str = "min-sum",
+                               scale_llr: bool = False, dtype=torch.float32,
+                               device=None,
+                               generator: torch.Generator | None = None
+                               ) -> RandomCodewordSweep:
+    """Monte-Carlo step transmitting RANDOM codewords (not all-zero): the
+    reference's G-based path (ldpc.py:409-416) on the torch engine, whose
+    hard decisions the errors are counted from; see
+    :class:`RandomCodewordSweep`.  Validates the all-zero protocol
+    (linearity, channel and decoder symmetry) end to end."""
+    return RandomCodewordSweep(code, max_iters, kind=kind,
+                               scale_llr=scale_llr, dtype=dtype,
+                               device=device, generator=generator)
+
+
 def batch_seed(seed: int, s_idx: int, done_words: int) -> int:
     """Philox seed of batch ``done_words`` of point ``s_idx``: the JAX
     loop's ``fold_in(fold_in(key(seed), s_idx), done_words)``, as a numpy
@@ -318,26 +454,39 @@ def evaluate_code(code: QCCode,
     "flooding" or "layered", ``popcount_sign``).
 
     ``codewords``: "zero" (the reference's all-zero Monte-Carlo path,
-    ldpc.py:409-411); "random" waits for the port of ``codes/encode.py``.
+    ldpc.py:409-411) or "random": uniform messages, systematically encoded,
+    errors counted against the transmitted word (the torch engine,
+    unstaged, without ``sort_words``; see
+    :func:`random_codeword_sweep_step`).
 
     ``checkpoint_path``: save the accumulated statistics after every SNR
     point and, on restart, resume by skipping points already completed
     with at least ``num_transmissions`` words, and the batches already
     recorded of a point begun.
     """
-    if codewords == "random":
-        raise NotImplementedError(
-            "codewords='random' needs codes/encode.py, ROADMAP.md Queue A "
-            "item 1")
-    if codewords != "zero":
-        raise ValueError(f"unknown codewords mode: {codewords!r}")
     dev = resolve_device(device)
-    step = make_staged_sweep_device(
-        code, max_iters, scale_llr=scale_llr, device=dev,
-        phase1_iters=phase1_iters if staged else [], kind=kind,
-        dtype=dtype, engine=engine, store_dtype=store_dtype,
-        schedule=schedule, tile_b=tile_b, sort_words=sort_words,
-        popcount_sign=popcount_sign)
+    if codewords == "random":
+        if tile_b is not None:
+            raise ValueError("tile_b is a pallas-engine scheduling lever; "
+                             "the port's engines run one word per block")
+        if staged or engine != "torch" or sort_words:
+            raise ValueError(
+                "codewords='random' uses the torch engine unstaged, without "
+                "sort_words (the kernel counts errors against the all-zero "
+                "word on the card; this path encodes random messages to "
+                "validate that protocol)")
+        step = random_codeword_sweep_step(
+            code, max_iters, kind=kind, scale_llr=scale_llr, dtype=dtype,
+            device=dev)
+    elif codewords != "zero":
+        raise ValueError(f"unknown codewords mode: {codewords!r}")
+    else:
+        step = make_staged_sweep_device(
+            code, max_iters, scale_llr=scale_llr, device=dev,
+            phase1_iters=phase1_iters if staged else [], kind=kind,
+            dtype=dtype, engine=engine, store_dtype=store_dtype,
+            schedule=schedule, tile_b=tile_b, sort_words=sort_words,
+            popcount_sign=popcount_sign)
     if stats is None:
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             stats = BerStatistics.load(checkpoint_path)

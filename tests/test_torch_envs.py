@@ -190,7 +190,7 @@ def test_environment_vector_batched_matches_sequential():
 
 
 def test_environment_vector_mesh_waits_for_parallel():
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         EnvironmentVector([lambda: small_env()], mesh=object())
 
 

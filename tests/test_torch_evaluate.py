@@ -135,8 +135,8 @@ def test_early_abort_stops_the_sweep():
     (dict(schedule="layered"), ValueError, "cuda engine"),
     (dict(store_dtype="int8", engine="cuda", kind="sum-product"),
      ValueError, "min-sum family"),
-    (dict(sort_words=True), NotImplementedError, "sort_words"),
-    (dict(codewords="random"), NotImplementedError, "encode"),
+    (dict(sort_words=True, codewords="random"), ValueError, "sort_words"),
+    (dict(codewords="random", engine="cuda"), ValueError, "encode"),
     (dict(codewords="other"), ValueError, "codewords"),
     (dict(tile_b=128, engine="cuda"), ValueError, "tile_b"),
     (dict(engine="xla"), ValueError, "engine"),
@@ -288,9 +288,11 @@ def test_cli_bench_and_probe_on_the_cpu(cpu_platform, capsys):
 
 @pytest.mark.parametrize("argv,err", [
     (["evaluate", "--sharded"], NotImplementedError),
-    (["evaluate", "--plot", "x.png"], NotImplementedError),
+    (["evaluate", "--codewords", "random", "--engine", "cuda"],
+     SystemExit),
     (["evaluate", "--tile-b", "128"], SystemExit),
-    (["evaluate", "--codewords", "random"], NotImplementedError),
+    (["evaluate", "--codewords", "random", "--schedule", "layered"],
+     SystemExit),
     (["evaluate", "--schedule", "layered"], ValueError),
 ])
 def test_cli_refuses_later_options(cpu_platform, argv, err):

@@ -102,7 +102,17 @@ def test_port_and_chip_smoke_import_without_jax():
               "ldpc_tpu_torch.rl.buffer", "ldpc_tpu_torch.rl.model",
               "ldpc_tpu_torch.rl.ppo", "ldpc_tpu_torch.rl.train",
               "ldpc_tpu_torch.rl.vpg", "ldpc_tpu_torch.utils.checkpoint",
-              "ldpc_tpu_torch.utils.experiment"):
+              "ldpc_tpu_torch.utils.experiment",
+              "ldpc_tpu_torch.codes.encode", "ldpc_tpu_torch.native",
+              "ldpc_tpu_torch.utils.config",
+              "ldpc_tpu_torch.utils.provenance",
+              "ldpc_tpu_torch.analysis.plots",
+              "ldpc_tpu_torch.scripts.studies",
+              "ldpc_tpu_torch.scripts.ber_parity",
+              "ldpc_tpu_torch.scripts.random_codeword_check",
+              "ldpc_tpu_torch.scripts.error_floor",
+              "ldpc_tpu_torch.scripts.wifi_waterfall",
+              "ldpc_tpu_torch.scripts.sort_ab"):
         assert m in res["modules"]
 
 
@@ -162,6 +172,35 @@ def test_code_search_entry_points_raise_without_a_card(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_validation_entry_points_raise_without_a_card(monkeypatch,
+                                                      tmp_path):
+    """The encoder, the random-codeword step, the studies and `cli
+    getting-started` run on the card unless asked for the CPU; the studies
+    raise before they write anything."""
+    monkeypatch.delenv("LDPC_TPU_PLATFORM", raising=False)
+    if torch.cuda.is_available():
+        return
+    import importlib
+    from ldpc_tpu_torch.codes.encode import encode, encoder_for_code
+    from ldpc_tpu_torch.sim.evaluate import random_codeword_sweep_step
+    wifi = wifi_code()
+    k = encoder_for_code(wifi).k_eff
+    out = str(tmp_path / "art")
+    calls = [lambda: encode(wifi, [[0] * k]),
+             lambda: encoder_for_code(wifi)([[0] * k]),
+             lambda: random_codeword_sweep_step(wifi),
+             lambda: evaluate_code(wifi, [3.0], 4, 5, codewords="random"),
+             lambda: cli.main(["getting-started"])]
+    for name in ("ber_parity", "random_codeword_check", "error_floor",
+                 "wifi_waterfall", "sort_ab"):
+        mod = importlib.import_module(f"ldpc_tpu_torch.scripts.{name}")
+        calls.append(lambda mod=mod: mod.main(["--out", out]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())
 
 
 def test_trainer_refuses_to_run_on_the_cpu_unless_asked(monkeypatch,

@@ -196,11 +196,11 @@ def test_ppo_resume_between_checkpoints_truncates_logs(tmp_path):
 
 def test_ppo_refuses_what_it_cannot_do(tmp_path):
     env_fn = _tiny_env_fn()
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         ppo(env_fn, PPOConfig(epochs=0), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         ppo(env_fn, PPOConfig(epochs=0), env_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         rl_train.dryrun_train_step(object())
     with pytest.raises(ValueError, match="needs a checkpoint_dir"):
         ppo(env_fn, PPOConfig(epochs=0), _ac_cfg(env_fn), resume=True,
