@@ -25,8 +25,8 @@ find:
            rollout, exact resume) and VPG, the trainer's entry point, the
            random-search baseline
   utils/   device selection, the bounded cache, the experiment loggers,
-           checkpoints (``torch.save``), experiment grids, the
-           configuration, artifact provenance
+           checkpoints (``torch.save``), experiment grids, artifact
+           provenance
   native/  the C++ min-sum host engine (g++ + ctypes)
   analysis/ evaluation plots
   csrc/    CUDA sources and their nvcc + ctypes build

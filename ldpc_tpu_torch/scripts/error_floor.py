@@ -8,7 +8,10 @@ and say whether the code has an error floor in the 3.6-4.2 dB region.
 
 The sweep is the resumable staged ``evaluate_code`` (12 -> 50, batches of
 32,768) on the cuda engine (the fused kernel, bfloat16 state) by default,
-with a checkpoint after every point.  Writes
+with a checkpoint after every point.  The checkpoint's default file is
+named by a hash of the run's settings (code, engine, words, points,
+budgets, batch, seed) and of the port's decode-path sources, so a run
+resumes only a run like itself.  Writes
 ``ldpc_tpu_torch/data/error_floor.{json,md}`` (or ``--out``; a code
 instance writes ``error_floor_instance_<hash>``), stamped with the port's
 kernel hash and the card's name and power limit, with Wilson 95% intervals
@@ -28,6 +31,7 @@ CPU smoke::
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -40,7 +44,22 @@ from ..codes import near_earth_code, wifi_code
 from ..codes.io import load_code_instance
 from ..sim.evaluate import evaluate_code
 from ..sim.stats import wilson_interval
+from ..utils.provenance import kernel_source_hash
 from .studies import artifact_base, stamp, study_device, write_artifact
+
+SEED = 8146
+
+
+def default_checkpoint(args: argparse.Namespace, code_key: str) -> str:
+    """The checkpoint file of a run with these settings, in the temporary
+    directory: one file for each (code, engine, words, points, budgets,
+    batch, seed, decode-path sources)."""
+    key = json.dumps([code_key, args.engine, args.words, args.snr,
+                      args.max_iters, args.batch, args.phase_iters, SEED,
+                      kernel_source_hash()])
+    digest = hashlib.sha256(key.encode()).hexdigest()[:16]
+    return os.path.join(tempfile.gettempdir(),
+                        f"error_floor_checkpoint_{digest}.npz")
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -60,16 +79,19 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--out", default=None,
                     help="artifact base path (default: "
                          "ldpc_tpu_torch/data/error_floor on the card)")
-    ap.add_argument("--checkpoint",
-                    default=os.path.join(tempfile.gettempdir(),
-                                         "error_floor_checkpoint.npz"))
+    ap.add_argument("--checkpoint", default=None,
+                    help="resume from and save to this file (default: a "
+                         "file named by the run's settings)")
     args = ap.parse_args(argv)
 
     dev = study_device()
     name = "error_floor"
+    code_key = args.code
     if args.code.startswith("instance:"):
         path = args.code[len("instance:"):]
         code = load_code_instance(path)[0]
+        with open(path, "rb") as f:
+            code_key = hashlib.sha256(f.read()).hexdigest()
         args.code = "instance:" + os.path.basename(path)[:24]
         # never clobber another instance's study: the z_Mb_Nb_sha
         # file name is unique per code
@@ -78,12 +100,13 @@ def main(argv: list[str] | None = None) -> dict:
         code = wifi_code()
     else:
         code = near_earth_code()
+    checkpoint = args.checkpoint or default_checkpoint(args, code_key)
     t0 = time.perf_counter()
     stats = evaluate_code(
-        code, args.snr, args.words, args.max_iters, seed=8146,
+        code, args.snr, args.words, args.max_iters, seed=SEED,
         batch_size=args.batch, staged=True,
         phase1_iters=[int(p) for p in args.phase_iters.split(",")],
-        engine=args.engine, checkpoint_path=args.checkpoint, verbose=True,
+        engine=args.engine, checkpoint_path=checkpoint, verbose=True,
         device=dev)
     elapsed = time.perf_counter() - t0
 

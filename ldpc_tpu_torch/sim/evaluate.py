@@ -30,10 +30,11 @@ JAX's) before the cascade and puts every output back in the caller's
 order: with one block per word it changes only the order of work, and
 every output is bit-identical.
 
-``staged_decode_counts`` is the JAX package's host-staged two-phase decode:
-one read after the first phase, then the whole batch again above 25%
-failures, else fixed ``min(pad_to, B)``-word chunks of the failures padded
-with word 0, whose extra rows are discarded.
+``staged_decode_counts`` keeps the JAX package's signature for its
+host-staged two-phase decode and runs it as the cascade above with one
+stage and a redo capacity of B/4 (the whole batch again above 25%
+failures).  Its ``pad_to`` fixed the redo chunk's shape for XLA's compiler
+and changes nothing here.
 
 ``codewords="random"`` (``random_codeword_sweep_step``) transmits
 systematically encoded uniform messages (``codes/encode.py``) and counts
@@ -225,15 +226,14 @@ def staged_decode_counts(code: QCCode, llr: torch.Tensor,
                          dtype=torch.float32, engine: str = "torch",
                          **decoder_kw):
     """Two-phase decode on ``llr``'s device with exactly the semantics of a
-    single ``max_iters`` decode, staged on the host.
-
-    Phase 1 decodes the whole batch with ``phase1_iters``; the words that
-    failed are decoded again from scratch with ``max_iters``: the whole
-    batch when more than a quarter failed, else the failures in fixed
-    chunks of ``min(pad_to, B)`` words, the last padded with word 0 and its
-    extra rows discarded.  Latching makes the merged outputs those of one
-    straight decode.  ``decoder_kw``: the cuda engine's ``store_dtype``,
-    ``schedule``, ``popcount_sign``, ``dep_stride``.
+    single ``max_iters`` decode: the cascade ``phase1_iters`` ->
+    ``max_iters`` of :class:`StagedDecoder`, whose redo capacity B/4 makes
+    it decode the whole batch again when more than a quarter of it failed
+    phase 1, as the JAX package's does.  ``pad_to`` is accepted for the JAX
+    signature: there it fixes the redo chunk's shape so that XLA compiles
+    one phase-2 program; a kernel with one block per word needs no chunk,
+    so it has no effect.  ``decoder_kw``: the cuda engine's
+    ``store_dtype``, ``schedule``, ``popcount_sign``, ``dep_stride``.
 
     Returns (bit_errors[B] int64, iterations[B], success[B]) as numpy
     arrays.
@@ -244,38 +244,12 @@ def staged_decode_counts(code: QCCode, llr: torch.Tensor,
     if unknown:
         raise ValueError(f"unsupported decoder options: {sorted(unknown)}")
     opts.update(decoder_kw)
-    _refuse_options(engine=engine, tile_b=None, **opts)
-
-    def counts(iters):
-        fn = _engine_counts_fn(code, iters, kind=kind, dtype=dtype,
-                               engine=engine, device=llr.device, **opts)
-        return lambda x: [t.cpu().numpy() for t in fn(x)]
-
-    b = llr.shape[0]
-    e1, iters, success = counts(phase1_iters)(llr)
-    errors = e1.astype(np.int64)
-    failed = np.flatnonzero(~success)
-    if failed.size:
-        full = counts(max_iters)
-        if failed.size > 0.25 * b:
-            # below the waterfall most words miss phase 1: decoding the
-            # whole batch again beats the gather
-            e2, it2, ok2 = full(llr)
-            errors[failed] = e2[failed]
-            iters[failed] = it2[failed]
-            success[failed] = ok2[failed]
-        else:
-            chunk = min(pad_to, b)
-            for lo in range(0, failed.size, chunk):
-                part = failed[lo:lo + chunk]
-                idx = np.concatenate(
-                    [part, np.zeros(chunk - part.size, np.int64)])
-                e2, it2, ok2 = full(llr.index_select(
-                    0, torch.as_tensor(idx, device=llr.device)))
-                errors[part] = e2[:part.size]
-                iters[part] = it2[:part.size]
-                success[part] = ok2[:part.size]
-    return errors, iters, success
+    decoder = StagedDecoder(code, max_iters, phase1_iters=[phase1_iters],
+                            redo_capacity=max(1, llr.shape[0] // 4),
+                            kind=kind, dtype=dtype, engine=engine,
+                            device=llr.device, **opts)
+    errors, iters, success = (t.cpu().numpy() for t in decoder(llr))
+    return errors.astype(np.int64), iters, success
 
 
 def transmit(n: int, snr_db: torch.Tensor, *,

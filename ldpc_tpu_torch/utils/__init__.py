@@ -1,20 +1,15 @@
 """Device selection, a bounded LRU cache, the experiment loggers,
-checkpoints, experiment grids, the configuration and artifact
-provenance."""
+checkpoints, experiment grids and artifact provenance."""
 
 from .cache import BoundedCache
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from .config import (DecoderConfig, EnvConfig, FrameworkConfig, SimConfig,
-                     load_config, save_config)
 from .device import default_device, device_info, resolve_device
 from .experiment import ExperimentGrid, setup_logger_kwargs
 from .logging import EpochLogger, TsvLogger, colorize, statistics_scalar
-from .provenance import kernel_source_hash, source_file_hash
+from .provenance import kernel_source_hash
 
 __all__ = ["default_device", "device_info", "resolve_device",
            "BoundedCache", "EpochLogger", "TsvLogger", "colorize",
            "statistics_scalar", "save_checkpoint", "restore_checkpoint",
            "latest_step", "ExperimentGrid", "setup_logger_kwargs",
-           "DecoderConfig", "EnvConfig", "FrameworkConfig", "SimConfig",
-           "load_config", "save_config", "kernel_source_hash",
-           "source_file_hash"]
+           "kernel_source_hash"]

@@ -12,7 +12,7 @@ from __future__ import annotations
 import hashlib
 import pathlib
 
-__all__ = ["KERNEL_SOURCES", "kernel_source_hash", "source_file_hash"]
+__all__ = ["KERNEL_SOURCES", "kernel_source_hash"]
 
 # The sources whose behaviour defines the decode path the artifacts
 # measure, relative to the ldpc_tpu_torch package root.
@@ -38,9 +38,3 @@ def kernel_source_hash(root=None) -> str:
         h.update((root / rel).read_bytes())
     return h.hexdigest()
 
-
-def source_file_hash(rel_path: str, root=None) -> str:
-    """SHA-256 of ONE package source (path relative to the package root),
-    for an artifact whose subject lies outside :data:`KERNEL_SOURCES`."""
-    root = _ROOT if root is None else pathlib.Path(root)
-    return hashlib.sha256((root / rel_path).read_bytes()).hexdigest()

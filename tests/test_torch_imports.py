@@ -104,7 +104,6 @@ def test_port_and_chip_smoke_import_without_jax():
               "ldpc_tpu_torch.rl.vpg", "ldpc_tpu_torch.utils.checkpoint",
               "ldpc_tpu_torch.utils.experiment",
               "ldpc_tpu_torch.codes.encode", "ldpc_tpu_torch.native",
-              "ldpc_tpu_torch.utils.config",
               "ldpc_tpu_torch.utils.provenance",
               "ldpc_tpu_torch.analysis.plots",
               "ldpc_tpu_torch.scripts.studies",

@@ -7,9 +7,7 @@ import shutil
 import pytest
 
 from ldpc_tpu_torch.utils import provenance
-from ldpc_tpu_torch.utils.provenance import (KERNEL_SOURCES,
-                                             kernel_source_hash,
-                                             source_file_hash)
+from ldpc_tpu_torch.utils.provenance import KERNEL_SOURCES, kernel_source_hash
 
 PORT = pathlib.Path(provenance.__file__).resolve().parent.parent
 
@@ -38,7 +36,6 @@ def test_hash_changes_when_a_listed_file_changes(tmp_path, rel):
     with open(root / rel, "ab") as f:
         f.write(b"\n")
     assert kernel_source_hash(root) != before
-    assert source_file_hash(rel, root) != source_file_hash(rel)
 
 
 def test_hash_reads_no_file_of_the_jax_package(monkeypatch):
@@ -51,7 +48,6 @@ def test_hash_reads_no_file_of_the_jax_package(monkeypatch):
 
     monkeypatch.setattr(pathlib.Path, "read_bytes", spy)
     kernel_source_hash()
-    source_file_hash("ops/cuda_split.py")
-    assert len(read) == len(KERNEL_SOURCES) + 1
+    assert len(read) == len(KERNEL_SOURCES)
     assert all(PORT in p.parents for p in read)
     assert not any("ldpc_tpu" in p.parts for p in read)

@@ -1,7 +1,7 @@
 """The Monte-Carlo validation path of the port against the JAX package, on
 the same numpy inputs: random codewords (encoder + torch engine against
 encoder + XLA), ``sort_words`` on both engines, the host-staged
-``staged_decode_counts(pad_to)``, the configuration, and the studies of
+``staged_decode_counts(pad_to)``, and the studies of
 ``ldpc_tpu_torch/scripts/`` at tiny sizes with the JAX artifacts' keys.
 
 The torch engine and XLA differ only on words that do not converge (float32
@@ -26,9 +26,6 @@ from ldpc_tpu.sim.evaluate import \
     make_staged_decoder_device as jax_staged_decoder
 from ldpc_tpu.sim.evaluate import \
     staged_decode_counts as jax_staged_decode_counts
-from ldpc_tpu.utils.config import FrameworkConfig as JaxFrameworkConfig
-from ldpc_tpu.utils.config import load_config as jax_load_config
-from ldpc_tpu.utils.config import save_config as jax_save_config
 from ldpc_tpu_torch import cli
 from ldpc_tpu_torch.codes import near_earth_code, wifi_code
 from ldpc_tpu_torch.codes.encode import encoder_for_code
@@ -38,8 +35,6 @@ from ldpc_tpu_torch.sim.evaluate import (evaluate_code,
                                          make_staged_sweep_device,
                                          random_codeword_sweep_step,
                                          staged_decode_counts)
-from ldpc_tpu_torch.utils.config import (FrameworkConfig, load_config,
-                                         save_config)
 
 # xdist runs several workers on the machine's cores: one intra-op
 # thread each, or their thread pools contend and the CPU tests crawl
@@ -210,9 +205,9 @@ def test_sorted_sweep_step_is_bit_identical():
 @pytest.mark.parametrize("pad_to", [1, 3, 256])
 @pytest.mark.parametrize("snr,many", [(2.5, True), (3.5, False)])
 def test_staged_decode_counts_matches_jax(pad_to, snr, many):
-    """The host-staged two-phase decode on the torch engine against JAX's
-    on XLA: above 25% stage-1 failures (the whole batch again) and below
-    (chunks of min(pad_to, B) words padded with word 0)."""
+    """The two-phase decode on the torch engine against JAX's host-staged
+    one on XLA: above 25% stage-1 failures (the whole batch again) and
+    below (only the failures; JAX's chunks of min(pad_to, B) words)."""
     code = wifi_code()
     llr = _llr(code.n, snr, 9, b=16)
     first = decoder_for_code(code, 4)(torch.from_numpy(llr))
@@ -229,6 +224,25 @@ def test_staged_decode_counts_matches_jax(pad_to, snr, many):
     assert np.array_equal(got[2], single.success.numpy())
 
 
+@pytest.mark.parametrize("snr,many", [(2.5, True), (3.5, False)])
+def test_staged_decode_counts_cuda_engine_is_one_straight_decode(snr, many):
+    """On the cuda engine (its plain version on the CPU) the two-phase
+    counts equal one straight ``max_iters`` decode whatever ``pad_to``,
+    above and below 25% stage-1 failures."""
+    from ldpc_tpu_torch.ops.cuda_static import make_static_sweep_decoder
+    code = wifi_code()
+    llr = torch.from_numpy(_llr(code.n, snr, 9, b=16))
+    first = make_static_sweep_decoder(code, 4, device="cpu")(llr)
+    assert (int((~first[2]).sum()) > 4) == many
+    single = make_static_sweep_decoder(code, 20, device="cpu")(llr)
+    for pad_to in (1, 3, 256):
+        got = staged_decode_counts(code, llr, 20, phase1_iters=4,
+                                   pad_to=pad_to, engine="cuda")
+        assert got[0].dtype == np.int64
+        for g, w in zip(got, single):
+            assert np.array_equal(g, w.numpy())
+
+
 def test_staged_decode_counts_refuses_unknown_options():
     code = wifi_code()
     llr = torch.from_numpy(_llr(code.n, 3.0, 1))
@@ -236,31 +250,6 @@ def test_staged_decode_counts_refuses_unknown_options():
         staged_decode_counts(code, llr, 10, phase1_iters=4, tile_b=4)
     with pytest.raises(ValueError, match="levers"):
         staged_decode_counts(code, llr, 10, phase1_iters=4, dep_stride=2)
-
-
-# --- configuration -------------------------------------------------------------
-
-def test_config_roundtrip_and_env_override_match_jax(tmp_path, monkeypatch):
-    cfg, jcfg = FrameworkConfig(), JaxFrameworkConfig()
-    assert {k: v for k, v in cfg.asdict().items() if k != "data_dir"} == \
-        {k: v for k, v in jcfg.asdict().items() if k != "data_dir"}
-    for c in (cfg, jcfg):
-        c.decoder.max_iters = 25
-        c.data_dir = str(tmp_path / "runs")
-    save_config(cfg, tmp_path / "port.json")
-    jax_save_config(jcfg, tmp_path / "jax.json")
-    assert json.loads((tmp_path / "port.json").read_text()) == \
-        json.loads((tmp_path / "jax.json").read_text())
-    monkeypatch.setenv("LDPC_TPU_DECODER_MAX_ITERS", "7")
-    monkeypatch.setenv("LDPC_TPU_DECODER_STAGED", "false")
-    monkeypatch.setenv("LDPC_TPU_SIM_SNR_POINTS", "2.0,2.5")
-    monkeypatch.setenv("LDPC_TPU_ENV_TIME_BUDGET_S", "12.5")
-    got = load_config(tmp_path / "port.json").asdict()
-    want = jax_load_config(tmp_path / "port.json").asdict()
-    assert got == want
-    assert got["decoder"]["max_iters"] == 7
-    assert got["sim"]["snr_points"] == (2.0, 2.5)
-    assert load_config(tmp_path / "missing.json").decoder.max_iters == 7
 
 
 # --- the CLI ---------------------------------------------------------------------
@@ -349,6 +338,29 @@ def test_study_runs_on_the_cpu_with_the_jax_keys(script, cpu_platform,
         want["codes"] = {"wifi": want["codes"]["wifi"]}
     assert _contains(_keys(written), want)
     assert written["device"] == "cpu" and len(written["kernel_hash"]) == 64
+
+
+def test_error_floor_default_checkpoint_is_the_runs_own(cpu_platform,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """With the default checkpoint a run with other settings (words,
+    engine) does not resume another run's points; the same run does."""
+    import tempfile
+    from ldpc_tpu_torch.scripts import error_floor
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    base = ["--code", "wifi", "--snr", "3.0", "--batch", "16", "--no-write"]
+
+    def files():
+        return sorted(tmp_path.glob("error_floor_checkpoint_*.npz"))
+
+    first = error_floor.main(base + ["--words", "32"])
+    assert len(files()) == 1 and first["points"][0]["words"] == 32
+    fewer = error_floor.main(base + ["--words", "16"])
+    assert fewer["points"][0]["words"] == 16
+    other = error_floor.main(base + ["--words", "32", "--engine", "torch"])
+    assert other["engine"] == "torch" and len(files()) == 3
+    again = error_floor.main(base + ["--words", "32"])
+    assert again["points"] == first["points"] and len(files()) == 3
 
 
 def test_study_on_the_cpu_writes_only_where_asked(cpu_platform, tmp_path,
