@@ -169,14 +169,32 @@ no result line:
            cuda engines, every FER interval overlapping the JAX package's
            (docs/error_floor.json, docs/wifi_waterfall.json); (g) `cli
            getting-started`: the probe OK and the native engine available.
-16. the kernels line, the card line again, and the result line.
+16. parallel parallel/ (torch.distributed): (a) each point of the main
+           path's protocol (one batch of 32,768 near-earth words, 12 -> 50,
+           capacity 6,144, the fused kernel) through evaluate_code_sharded
+           on a one-rank NCCL group and through evaluate_code, in turns:
+           counters equal, bit/s of each beside phase 4's; (b)
+           dryrun_multichip(2) at its FULL sizes on a gloo group whose two
+           ranks share the card: 2 x 16,384 near-earth words at 3.4 dB
+           through the sharded cascade (each rank's counters equal to ONE
+           rank's on the same batch, and to (a)'s one-rank sharded step),
+           the hierarchical mesh, the row-sharded decoder on 802.11n rate
+           1/2 with integer LLRs (equal to the unsharded decoder), an
+           8-candidate vector step with the candidates sharded (equal to
+           the unsharded step) and dryrun_train_step; (c) `cli evaluate
+           --sharded` on near-earth, `cli post-mortem --best --heatmaps`
+           and topk_select(reeval_kw={"engine": "cuda", "staged": True})
+           on phase 14's steps.tsv (no candidate skipped), `cli
+           reward-surface`.  Every process group is destroyed at its end.
+17. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
 dep_stride replay of phase 11, the microbench script of phase 12, the
 env paths (a), (c) and (d) of phase 13, the trainer's runs (a) and (d)
-of phase 14, and the validation paths (c)-(f) of phase 15 that launch
-a kernel) clears the launch counts just before it
+of phase 14, the validation paths (c)-(f) of phase 15 that launch a
+kernel, and the sharded paths (a), (b) (the two ranks' sharded parts,
+summed) and (c) of phase 16) clears the launch counts just before it
 and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
@@ -185,8 +203,9 @@ it, are counted on no path.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
 no JAX.  Writes nothing but the kernel builds (ldpc_tpu_torch/_build/)
-and, in phases 14 and 15, the trainer's logs and checkpoints and the
-studies' artifacts under temporary directories that it removes.
+and, in phases 14-16, the trainer's logs and checkpoints, the studies'
+artifacts and the post-mortem's plots under temporary directories that it
+removes; phase 16's two ranks are processes it starts and waits for.
 """
 
 from __future__ import annotations
@@ -202,7 +221,7 @@ import traceback
 import numpy as np
 import torch
 
-from ldpc_tpu_torch import cli
+from ldpc_tpu_torch import cli, dryrun
 from ldpc_tpu_torch.codes import (QCCode, near_earth_code,
                                   synthetic_qc_code, wifi_code)
 from ldpc_tpu_torch.ops import cuda_split, cuda_static, microbench
@@ -465,6 +484,27 @@ JAX_WIFI_FRAMES = {
 # FFMA 2; what runs for some arguments only left out), counted by
 # ldpc_tpu_torch/scripts/phi_sass.py: phase 2 counts them on the card's
 # toolkit, and the bounds use that count.
+# Phase 16, parallel/: (a) the main path's sweep through
+# evaluate_code_sharded on a one-rank NCCL group, against evaluate_code;
+# (b) dryrun_multichip(2) at FULL (2 x 16,384 near-earth words at 3.4 dB)
+# on a gloo group whose two ranks share the card; (c) the CLI and the
+# post-training analysis on phase 14's steps.tsv.
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 240
+PAR_CLI_WORDS = 4096          # (c) cli evaluate --sharded, a point
+PAR_PATHS = {"a": "parallel (a) sharded sweep, one rank",
+             "b": "parallel (b) two ranks on the card",
+             "c_cli": "parallel (c) cli evaluate --sharded",
+             "c_topk": "parallel (c) topk_select"}
+# (b) the parts of a rank that decode sharded; the others are the
+# unsharded references they are held to
+PAR_SHARDED_PARTS = ("straight cuda", "staged", "staged hierarchical",
+                     "vector step sharded")
+PAR_TOPK_KW = {"engine": "cuda", "staged": True}
+PAR_TOPK_ARGS: dict = {}      # topk_select's defaults (a rehearsal: fewer)
+PAR_DRYRUN = dryrun.FULL      # (b)'s sizes
+
+
 def sum_product_ops(phi_ops: int) -> tuple[int, int]:
     return (7 + phi_ops, 8 + phi_ops)
 
@@ -2323,7 +2363,7 @@ def phase_trainer(dev) -> dict:
     return {"launches": {p: PATH_LAUNCHES[p].get(ENV_KEY, 0)
                          for p in TRAIN_PATHS.values()},
             "check": worst, "policy": pol, "measured": meas,
-            "profiled": profiled}
+            "profiled": profiled, "steps_tsv": tsv}
 
 
 def _overlap(a, b) -> bool:
@@ -2619,6 +2659,237 @@ def phase_validation(dev) -> dict:
     return out
 
 
+def _sweep_counters(stats: BerStatistics) -> dict:
+    """A sweep's counters, summed over its statistics' entries."""
+    return {k: int(stats.column(k).sum()) for k in (
+        "weight", "errors_uncoded", "errors_decoded", "iterations",
+        "success", "frame_errors")}
+
+
+def _par_sweep(dev, code, mesh, tag: str, main: dict) -> dict:
+    """(a) each point of the main path's protocol (one batch of BATCH
+    words, 12 -> 50, capacity REDO_CAP, the cuda engine) through
+    evaluate_code and evaluate_code_sharded on a one-rank mesh, in turns
+    (plain, sharded, sharded, plain): counters equal, bit/s of each.
+    evaluate_code takes no redo capacity (its default, B/4 rounded to 128,
+    is 8,192 here); a capacity changes a cascade's cost, never its
+    outputs."""
+    from ldpc_tpu_torch.parallel import evaluate_code_sharded
+    kw = dict(staged=True, engine="cuda", batch_size=BATCH, seed=SEED,
+              device=dev)
+    # the group's first collective sets its communicator up: not timed
+    evaluate_code_sharded(code, [SNR_POINTS[0]], 256, MAX_ITERS, mesh=mesh,
+                          **dict(kw, batch_size=256))
+    counts = collections.Counter()
+    points = {}
+    for snr in SNR_POINTS:
+        secs = {"plain": [], "sharded": []}
+        got = {}
+        for name in ("plain", "sharded", "sharded", "plain"):
+            clear_launches()
+            t0 = time.perf_counter()
+            if name == "plain":
+                st = evaluate_code(code, [snr], BATCH, MAX_ITERS, **kw)
+            else:
+                st = evaluate_code_sharded(code, [snr], BATCH, MAX_ITERS,
+                                           mesh=mesh,
+                                           redo_capacity=REDO_CAP, **kw)
+            sync(dev)
+            secs[name].append(time.perf_counter() - t0)
+            if name == "sharded":
+                counts.update(cuda_static.launches)
+            c = _sweep_counters(st)
+            if got.setdefault(name, c) != c:
+                raise AssertionError(f"(a) {snr} dB: {name} runs differ")
+        if got["sharded"] != got["plain"]:
+            raise AssertionError(f"(a) {snr} dB: sharded {got['sharded']} "
+                                 f"!= evaluate_code {got['plain']}")
+        rate = {k: BATCH * code.n / float(np.median(v))
+                for k, v in secs.items()}
+        points[snr] = {"counters": got["sharded"], "bit_per_s": rate,
+                       "seconds": secs}
+        ph4 = main["points"][snr]["bit_per_s"]
+        log(tag, f"(a) {snr} dB: counters equal to evaluate_code's "
+            f"({got['sharded']}); bit/s sharded {rate['sharded']:.6g}, "
+            f"evaluate_code {rate['plain']:.6g} (ratio "
+            f"{rate['sharded'] / rate['plain']:.4f}); phase 4's step "
+            f"{ph4:.6g}")
+    PATH_LAUNCHES[PAR_PATHS["a"]] = dict(counts)
+    if counts.get(key("min-sum", "bfloat16"), 0) == 0:
+        raise AssertionError(f"(a) the sharded sweep launched {counts}")
+    return points
+
+
+def _par_two_ranks(dev, code, mesh, tag: str) -> dict:
+    """(b) dryrun_multichip(PAR_RANKS) at PAR_DRYRUN on a gloo group whose
+    ranks share the card, held to the one-rank sharded step of (a)'s mesh
+    on the same batch."""
+    from ldpc_tpu_torch import dryrun
+    from ldpc_tpu_torch.parallel import sharded_staged_sweep_step
+    cfg = PAR_DRYRUN
+    b = cfg["words_per_rank"] * PAR_RANKS
+    cap = cfg["redo_capacity"] and cfg["redo_capacity"] * PAR_RANKS
+    step = sharded_staged_sweep_step(
+        code, mesh, cfg["max_iters"], phase1_iters=cfg["phase1_iters"],
+        redo_capacity=cap, engine=cfg["engine"], device=dev)
+    one = step(torch.full((b,), cfg["snr"], dtype=torch.float32,
+                          device=dev),
+               generator=torch.Generator(device=dev).manual_seed(
+                   dryrun.DRYRUN_SEED))
+    one = {k: one[k] for k in ("frames", "errors_uncoded", "errors_decoded",
+                               "iterations_sum", "success_count",
+                               "frame_errors")}
+    t0 = time.perf_counter()
+    reports = dryrun.dryrun_multichip(
+        PAR_RANKS, device=None if dev.type == "cuda" else "cpu",
+        backend="gloo", config=cfg, timeout_s=PAR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    counts = collections.Counter()
+    for r in reports:
+        if r["staged"] != one:
+            raise AssertionError(f"(b) rank {r['rank']}: {r['staged']} != "
+                                 f"the one-rank step's {one}")
+        for part in PAR_SHARDED_PARTS:
+            for k, c in r["launches"].get(part, {}).items():
+                kind, store, sched, pc = k.split(",")
+                counts[(kind, store, sched, pc == "True")] += c
+        log(tag, f"(b) rank {r['rank']} ({r['device']}, {r['backend']}): "
+            f"seconds by part " + ", ".join(
+                f"{p} {v:.3f}" for p, v in r["seconds"].items()) +
+            f"; launches {r['launches']}")
+    PATH_LAUNCHES[PAR_PATHS["b"]] = dict(counts)
+    r0 = reports[0]
+    log(tag, f"(b) {PAR_RANKS} ranks on one card, {b} {cfg['code']} words "
+        f"at {cfg['snr']} dB: staged counters {r0['staged']} equal to the "
+        f"one-rank step's; row-sharded decoder {r0['row_sharded']} equal "
+        f"to the unsharded one; vector step of {r0['vector_step']['envs']} "
+        f"envs equal to the unsharded step (rewards "
+        f"{[round(x, 4) for x in r0['vector_step']['rewards']]}); "
+        f"dryrun_train_step max parameter difference "
+        f"{r0['train_step']['max_param_diff']:.3g}; {wall:.1f} s in all")
+    for k in (key("min-sum", "bfloat16"), key("min-sum", "float32")):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"(b) no launch of {k}: {dict(counts)}")
+    return {"one_rank": one, "reports": reports, "wall_s": wall}
+
+
+def _par_cli_analysis(dev, tag: str, steps_tsv: bytes) -> dict:
+    """(c) cli evaluate --sharded on near-earth, post-mortem and
+    topk_select on phase 14's steps.tsv, and reward-surface."""
+    import os
+    import tempfile
+
+    import importlib.util
+
+    import pandas as pd
+    from ldpc_tpu_torch.analysis import (action_heatmaps, reward_surface,
+                                         topk_select)
+    out = {}
+    clear_launches()
+    st = run_cli(dev, ["evaluate", "--sharded", "--code", "near-earth",
+                       "--engine", "cuda", "--transmissions",
+                       str(PAR_CLI_WORDS), "--batch-size",
+                       str(PAR_CLI_WORDS)])
+    got = record_path(PAR_PATHS["c_cli"])
+    summ = st.summary()
+    log(tag, f"(c) cli evaluate --sharded: BER {summ['ber']}, FER "
+        f"{summ['fer']}, launches {got}")
+    if summ["transmissions"] != PAR_CLI_WORDS * len(SNR_POINTS) or \
+            got.get(key("min-sum", "bfloat16"), 0) == 0:
+        raise AssertionError(f"(c) cli evaluate --sharded: {summ}, {got}")
+    out["cli_evaluate"] = summ
+    # the figures need matplotlib (and seaborn); where the machine has
+    # none, the commands run without drawing, and the log says so
+    plots = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        tsv = os.path.join(tmp, "steps.tsv")
+        with open(tsv, "wb") as f:
+            f.write(steps_tsv)
+        t0 = time.perf_counter()
+        pm = run_cli(dev, ["post-mortem", tsv, "--best"] +
+                     (["--heatmaps"] if plots else []))
+        pm_s = time.perf_counter() - t0
+        grids = {k: list(v.shape) for k, v in action_heatmaps(tsv).items()}
+        maps = [f"heatMap{c}.png" for c in "IJK"] if plots else []
+        if not pm["best"] or not all(os.path.exists(os.path.join(tmp, m))
+                                     for m in maps):
+            raise AssertionError(f"(c) post-mortem: {pm}")
+        log(tag, f"(c) cli post-mortem --best"
+            f"{' --heatmaps' if plots else ''} on phase 14's steps.tsv: "
+            f"{len(pm['best'])} best code(s), BER "
+            f"{[b['ber'] for b in pm['best']]} ({pm_s:.2f} s); heat maps "
+            f"{grids}" + ("" if plots else " (arrays only: no matplotlib "
+                                           "on this machine, no figure)"))
+        out["post_mortem"] = {**pm, "heatmaps": grids, "figures": plots}
+        df = pd.read_csv(tsv, sep="\t", dtype={"observation_hex": str})
+        pos = df[df["reward"] > 0]
+        cands = min(PAR_TOPK_ARGS.get("topk", 8),
+                    (pos if len(pos) else df)["observation_hex"].nunique())
+        reeval = dict(PAR_TOPK_KW, **({} if dev.type == "cuda"
+                                      else {"device": "cpu"}))
+        clear_launches()
+        t0 = time.perf_counter()
+        _, rows = topk_select(tsv, reeval_kw=reeval, verbose=False,
+                              **PAR_TOPK_ARGS)
+        topk_s = time.perf_counter() - t0
+        got = record_path(PAR_PATHS["c_topk"])
+        log(tag, f"(c) topk_select(reeval_kw={PAR_TOPK_KW}): "
+            f"{len(rows)} of {cands} candidates re-scored, "
+            f"{cands - len(rows)} skipped; train -> re-evaluated reward " +
+            ", ".join(f"{r['train_reward']:.4f} -> {r['reward_mean']:.5f}"
+                      f" ± {r['reward_std']:.5f}" for r in rows) +
+            f"; launches {got} ({topk_s:.2f} s)")
+        if len(rows) != cands or not got:
+            raise AssertionError(f"(c) topk_select skipped "
+                                 f"{cands - len(rows)} of {cands}")
+        out["topk"] = {"candidates": cands, "rows": [
+            {k: r[k] for k in ("train_reward", "reward_mean", "reward_std",
+                               "penalized")} for r in rows]}
+        png = os.path.join(tmp, "rewardSurface.png")
+        if plots:
+            slope, _, _ = run_cli(dev, ["reward-surface", "--out", png])
+            if not os.path.exists(png):
+                raise AssertionError("(c) reward-surface wrote nothing")
+        else:
+            slope, _, _ = reward_surface()
+        log(tag, f"(c) {'cli ' if plots else ''}reward-surface: a "
+            f"{slope.shape} grid" + (" plotted" if plots else
+                                     " (no matplotlib: not plotted)"))
+    return out
+
+
+def phase_parallel(dev, main: dict, steps_tsv: bytes) -> dict:
+    """parallel/: (a) the sharded sweep on a one-rank group against
+    evaluate_code; (b) two ranks on the card; (c) the CLI and the
+    post-training analysis.  Every process group is destroyed at the
+    end."""
+    import torch.distributed as dist
+    from ldpc_tpu_torch.parallel import make_mesh
+    tag = "16parallel"
+    code = near_earth_code()
+    timed = {}
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(device=dev)
+        log(tag, f"(a) one-rank mesh {mesh}, backend "
+            f"{dist.get_backend()} ({time.perf_counter() - t0:.2f} s)")
+        out = {}
+        for name, fn in (
+                ("a", lambda: _par_sweep(dev, code, mesh, tag, main)),
+                ("b", lambda: _par_two_ranks(dev, code, mesh, tag)),
+                ("c", lambda: _par_cli_analysis(dev, tag, steps_tsv))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            timed[name] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(tag, "seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in timed.items()))
+    out["seconds"] = timed
+    return out
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -2675,6 +2946,7 @@ def run(dev: torch.device) -> dict:
     env = phase_env(dev)
     trainer = phase_trainer(dev)
     validation = phase_validation(dev)
+    parallel = phase_parallel(dev, main, trainer["steps_tsv"])
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -2742,7 +3014,7 @@ def run(dev: torch.device) -> dict:
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main, "split": split,
             "microbench": mb, "env": env, "trainer": trainer,
-            "validation": validation}
+            "validation": validation, "parallel": parallel}
 
 
 def main() -> int:

@@ -27,13 +27,19 @@ find:
   utils/   device selection, the bounded cache, the experiment loggers,
            checkpoints (``torch.save``), experiment grids, artifact
            provenance
+  parallel/ ``torch.distributed`` meshes, the sharded sweeps (the
+           cascade per rank, the counters summed with ``all_reduce``) and
+           the row-sharded decoder
   native/  the C++ min-sum host engine (g++ + ctypes)
-  analysis/ evaluation plots
+  analysis/ evaluation plots, the experiment post-mortem (best codes,
+           top-K re-evaluated selection, action heat maps, the reward
+           surface), the live dashboards
   csrc/    CUDA sources and their nvcc + ctypes build
   scripts/ ``python -m ldpc_tpu_torch.scripts.<name>``: the A/Bs, the
            microbenchmark, the SASS counts, the validation studies
   cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe|random-agent|
-           perturb|train|getting-started``
+           perturb|train|getting-started|post-mortem|reward-surface``
+  dryrun.py ``entry()`` and ``dryrun_multichip(n)``: the driver's checks
 
 Entry points run on the card unless called with ``device="cpu"``.
 
@@ -51,4 +57,4 @@ Quick start (on the card)::
 __version__ = "0.2.0"
 
 __all__ = ["codes", "ops", "sim", "envs", "rl", "utils", "native",
-           "analysis", "csrc", "scripts"]
+           "analysis", "csrc", "scripts", "parallel"]

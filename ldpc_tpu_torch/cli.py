@@ -1,9 +1,10 @@
 """Command-line entry points of the port: ``python -m ldpc_tpu_torch.cli``.
 
-The counterpart of ``python -m ldpc_tpu.cli`` for seven of its commands,
-with the same arguments and defaults:
+The counterpart of ``python -m ldpc_tpu.cli``, with the same commands,
+arguments and defaults:
 
-  evaluate     BER/FER sweep of a code on the card
+  evaluate     BER/FER sweep of a code on the card (``--sharded``: over
+               the ranks of a ``torch.distributed`` group, ``parallel/``)
   bench        the reference's benchmark presets (near-earth, wifi)
   probe        deterministic epsilon/bit-flip probe (ldpcCUDA.py:677)
   random-agent random code-search baseline (each candidate decoded by the
@@ -13,6 +14,8 @@ with the same arguments and defaults:
                command, after an optional ``--``)
   getting-started  environment check: torch and the card, a 1-flip
                802.11n probe, the native engine
+  post-mortem  re-evaluate an experiment's best codes, action heat maps
+  reward-surface  the reward landscape over (slope, bias)
 
 Engines: ``--engine torch`` is the counterpart of ``xla`` (plain torch
 ops), ``--engine cuda`` of ``pallas`` (the CUDA kernel: flooding or
@@ -53,9 +56,6 @@ def _get_code(name: str):
 def cmd_evaluate(args):
     """The sweep; prints the summary line and returns the statistics."""
     from .sim import evaluate_code
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded waits for parallel/, ROADMAP.md Queue A item 2")
     if args.tile_b is not None and args.engine != "cuda":
         raise SystemExit("--tile-b is a kernel scheduling lever; combine it "
                          "with --engine cuda")
@@ -67,6 +67,9 @@ def cmd_evaluate(args):
               if int(p) < args.iterations]
     staged = not args.no_staged and bool(phases)
     if args.codewords == "random":
+        if args.sharded:
+            raise SystemExit("--codewords random is the one-process "
+                             "validation path (torch engine, unstaged)")
         if (args.engine != "torch" or args.schedule != "flooding"
                 or args.store_dtype or args.tile_b is not None):
             raise SystemExit(
@@ -74,16 +77,28 @@ def cmd_evaluate(args):
                 "(flooding, f32): drop --engine/--schedule/--store-dtype/"
                 "--tile-b rather than having them silently ignored")
         staged = False
-    stats = evaluate_code(
-        code, args.snr, args.transmissions, args.iterations,
+    common = dict(
         seed=args.seed, batch_size=args.batch_size, kind=args.kind,
         scale_llr=(args.kind == "sum-product"), engine=args.engine,
         staged=staged, phase1_iters=phases,
         store_dtype=args.store_dtype, schedule=args.schedule,
-        tile_b=args.tile_b, sort_words=args.sort_words,
-        codewords=args.codewords, checkpoint_path=args.checkpoint,
+        sort_words=args.sort_words, checkpoint_path=args.checkpoint,
         early_abort_ber=args.early_abort_ber, verbose=True,
         device=_device())
+    if args.sharded:
+        # the reference wrapper's numberOfCudaDevices path
+        # (ldpcCUDA.py:891-932): the batch split over the ranks of the
+        # group (one rank without one; LDPC_TPU_DISTRIBUTED=1 joins the
+        # group a launcher describes), the counters summed
+        from .parallel import evaluate_code_sharded, initialize_distributed
+        initialize_distributed(device=_device())
+        stats = evaluate_code_sharded(
+            code, args.snr, args.transmissions, args.iterations,
+            pallas_tile_b=args.tile_b, **common)
+    else:
+        stats = evaluate_code(
+            code, args.snr, args.transmissions, args.iterations,
+            tile_b=args.tile_b, codewords=args.codewords, **common)
     print(json.dumps(stats.summary()))
     if args.plot:
         from .analysis import plot_snr_vs_ber
@@ -170,6 +185,35 @@ def cmd_train(args):
     return train_main(args.rest, device=_device())
 
 
+def cmd_post_mortem(args):
+    """Re-evaluates the best codes of an experiment's steps.tsv and/or
+    draws its action heat maps (postProcessing.py:27-160 equivalents);
+    prints and returns what it found."""
+    from .analysis import action_heatmaps, post_mortem_best_codes
+    out = {}
+    if args.heatmaps:
+        grids = action_heatmaps(args.tsv, save_figures=True)
+        out["heatmaps"] = {k: list(v.shape) for k, v in grids.items()}
+        print(json.dumps(out["heatmaps"]))
+    if args.best:
+        results = post_mortem_best_codes(
+            args.tsv, num_transmissions=args.transmissions,
+            device=_device())
+        out["best"] = [stats.summary() for _, stats in results]
+        for summary in out["best"]:
+            print(json.dumps(summary))
+    return out
+
+
+def cmd_reward_surface(args):
+    """Writes the reward-surface plot; returns (slope, bias, reward)."""
+    from .analysis import reward_surface
+    out = reward_surface(start_point=args.start, end_point=args.end,
+                         save_path=args.out)
+    print(f"wrote {args.out}", file=sys.stderr)
+    return out
+
+
 def cmd_getting_started(args):
     """Environment check (gettingStarted.py equivalent); returns the
     probe's outcome and whether the native engine is available."""
@@ -232,8 +276,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda engine state dtype (int8 = Q4.3 "
                         "fixed-point message memory)")
     e.add_argument("--sharded", action="store_true",
-                   help="evaluate over every visible device (not ported "
-                        "yet)")
+                   help="evaluate over the ranks of a torch.distributed "
+                        "group (one rank without one; the counters summed "
+                        "with all_reduce: evaluateCodeCudaWrapper's "
+                        "numberOfCudaDevices equivalent)")
     e.add_argument("--phase-iters", default="12",
                    help="staged-decode cascade budgets, e.g. '6,16' for "
                         "6 -> 16 -> full-iteration stages (exactly "
@@ -296,6 +342,21 @@ def build_parser() -> argparse.ArgumentParser:
 
     gs = sub.add_parser("getting-started", help="environment sanity check")
     gs.set_defaults(fn=cmd_getting_started)
+
+    pm = sub.add_parser("post-mortem", help="experiment post-hoc analysis")
+    pm.add_argument("tsv", help="experiment TSV log")
+    pm.add_argument("--best", action="store_true",
+                    help="re-evaluate best codes")
+    pm.add_argument("--heatmaps", action="store_true",
+                    help="write action heat maps")
+    pm.add_argument("--transmissions", type=int, default=64)
+    pm.set_defaults(fn=cmd_post_mortem)
+
+    rs = sub.add_parser("reward-surface", help="reward landscape plot")
+    rs.add_argument("--start", type=float, default=2.8)
+    rs.add_argument("--end", type=float, default=3.8)
+    rs.add_argument("--out", default="rewardSurface.png")
+    rs.set_defaults(fn=cmd_reward_surface)
     return p
 
 

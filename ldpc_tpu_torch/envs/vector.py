@@ -16,9 +16,16 @@ budget; under a WALL-CLOCK budget it is only approximate — the fused
 step's wall time is apportioned by per-candidate iteration share, a
 deterministic cost model, but not the sequential timings themselves.
 
-``batched=None`` (the default) steps sequentially: it fuses only where a
-``mesh`` shards the candidates over devices in the JAX package, and the
-port has no ``parallel/`` yet (``mesh=`` raises).
+With a ``mesh`` (``parallel.make_mesh``: every rank of a
+``torch.distributed`` group holds the same envs and steps them with the
+same actions) a fused step shards its candidates over the ranks: when the
+live candidates divide over them, each rank decodes only its contiguous
+share, and one ``all_reduce`` of zero-filled [N, B] counts gives every
+rank every candidate's results.  Every rank still draws every live
+candidate's channel, so each env's RandomState stays equal on all ranks,
+and the rewards, statistics and states equal the unsharded step's.
+``batched=None`` (the default) fuses when a mesh is given and the envs
+can batch, as the JAX package does, and steps sequentially otherwise.
 """
 
 from __future__ import annotations
@@ -42,23 +49,24 @@ class EnvironmentVector:
     ``multiDeviceEnvironment.step`` (envContainer.py:38-56).
 
     ``batched=True`` fuses the vector step (the envs must share a decode
-    shape family and the dynamic backend), ``False`` or ``None`` steps
-    sequentially.  ``env_kwargs`` (with an int ``env_fns``) go to every
-    ``LdpcCodeSearchEnv``, ``device`` included.
+    shape family and the dynamic backend), ``False`` steps sequentially,
+    ``None`` fuses when a ``mesh`` is given and the envs can batch.
+    ``mesh`` shards the candidates of a fused step over its ranks
+    (len(envs) should be a multiple of the rank count).  ``env_kwargs``
+    (with an int ``env_fns``) go to every ``LdpcCodeSearchEnv``,
+    ``device`` included.
     """
 
     def __init__(self, env_fns: Sequence[Callable[[], LdpcCodeSearchEnv]]
                  | int = 1, batched: bool | None = None, mesh=None,
                  **env_kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= waits for parallel/, ROADMAP.md Queue A item 2")
         if isinstance(env_fns, int):
             self.envs = [LdpcCodeSearchEnv(**env_kwargs)
                          for _ in range(env_fns)]
         else:
             self.envs = [fn() for fn in env_fns]
         self.batched = batched
+        self.mesh = mesh
         if batched and not self._can_batch():
             raise ValueError("batched=True but envs do not share a decode "
                              "shape family / dynamic backend / device")
@@ -91,7 +99,9 @@ class EnvironmentVector:
                 and self.envs[0].decoder_backend == "dynamic")
 
     def step(self, actions):
-        results = (self._step_batched(actions) if self.batched else
+        batched = self.batched if self.batched is not None else (
+            self.mesh is not None and self._can_batch())
+        results = (self._step_batched(actions) if batched else
                    [e.step(a) for e, a in zip(self.envs, actions)])
         obs = np.stack([r[0] for r in results])
         rewards = np.array([r[1] for r in results], np.float64)
@@ -132,6 +142,27 @@ class EnvironmentVector:
 
         return decode
 
+    def _decode_live(self, live, llrs) -> DecodeCounts:
+        """[N, B] counts of the live candidates: all of them here, or with
+        a mesh over which they divide, this rank's contiguous share,
+        zero-filled and summed over the ranks in one ``all_reduce``."""
+        if self.mesh is None:
+            return self._live_decoder(live)(llrs)
+        from ..parallel.mesh import all_reduce_sum, mesh_position, mesh_rows
+        if len(live) % mesh_position(self.mesh)[1]:
+            return self._live_decoder(live)(llrs)
+        rows = mesh_rows(self.mesh, len(live))
+        part = self._live_decoder(live[rows])(llrs[rows])
+        counts = torch.zeros(3, len(live), llrs[0].shape[0],
+                             dtype=torch.int64, device=llrs[0].device)
+        counts[:, rows] = torch.stack(
+            [x.to(torch.int64) for x in (part.errors, part.iterations,
+                                         part.success)])
+        all_reduce_sum(counts, self.mesh)
+        return DecodeCounts(counts[0].to(part.errors.dtype),
+                            counts[1].to(part.iterations.dtype),
+                            counts[2].to(torch.bool))
+
     def _step_batched(self, actions):
         """All legal candidates of one vector step, one host read."""
         prep = [e._prepare_step(a) for e, a in zip(self.envs, actions)]
@@ -141,9 +172,8 @@ class EnvironmentVector:
             t0 = time.perf_counter()
             for i in live:
                 self.envs[i].state = prep[i][1]
-            decode = self._live_decoder(live)
             trans = [self.envs[i]._transmit() for i in live]
-            res = decode([tr[1] for tr in trans])
+            res = self._decode_live(live, [tr[1] for tr in trans])
             cols = LdpcCodeSearchEnv._device_columns(
                 torch.stack([tr[1] for tr in trans]),
                 torch.stack([tr[2] for tr in trans]),

@@ -2,7 +2,7 @@
 (``buffer.py``), PPO with a vector rollout and exact resume (``ppo.py``), its
 entry point (``train.py``, ``cli train``), VPG (``vpg.py``) and the
 random-search baseline (``random_agent.py``).  TRPO, DDPG/TD3, SAC and the
-continuous-control pieces wait in ROADMAP.md Queue A item 1."""
+continuous-control pieces wait in ROADMAP.md Queue A item 3."""
 
 from .model import (Actor, ActorCriticConfig, Critic, MLP,
                     action_to_env_action, evaluate_actions, init_params,

@@ -55,7 +55,8 @@ import torch
 
 from ..envs.vector import EnvironmentVector
 from ..utils.device import resolve_device
-from ..utils.logging import EpochLogger, TsvLogger, statistics_scalar
+from ..utils.logging import (EpochLogger, TsvLogger, _is_chief,
+                             statistics_scalar)
 from .buffer import BufferContainer
 from .model import (ActorCriticConfig, action_to_env_action,
                     evaluate_actions, init_params, sample_step)
@@ -88,10 +89,21 @@ class PPOConfig:
     max_ep_len: int = 1000
 
 
-def _no_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}= waits for parallel/, ROADMAP.md Queue A item 2")
+def _sum_over_mesh(params, extras: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum every parameter's gradient and ``extras`` over ``mesh`` in one
+    ``all_reduce``; the gradients are written back, the summed extras
+    returned."""
+    from ..parallel.mesh import all_reduce_sum
+    params = list(params)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] +
+                                    [extras.to(grads[0].dtype)]), mesh)
+    at = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[at:at + g.numel()].view_as(g)
+        at += g.numel()
+    return flat[at:]
 
 
 def make_update_fns(cfg: ActorCriticConfig, ppo_cfg: PPOConfig,
@@ -104,33 +116,63 @@ def make_update_fns(cfg: ActorCriticConfig, ppo_cfg: PPOConfig,
     The extras (``kl``, ``entropy``, ``i_entropy``, ``loss_pi``,
     ``clipfrac``, detached tensors) come from the forward pass before the
     step, so the first KL of a batch is 0.
+
+    ``mesh`` (``parallel.make_mesh``) shards the update batch, which every
+    rank holds whole: each rank takes its rows, its losses are its rows'
+    sums over the global count, and the gradients (and the extras) are
+    summed over the ranks in one ``all_reduce`` before Adam, so the step
+    equals the one-process step within float tolerance on every rank.
     """
-    _no_mesh(mesh, "mesh")
+    from ..parallel.mesh import mesh_rows
     pi_opt, vf_opt = _adam(ppo_cfg.pi_lr), _adam(ppo_cfg.vf_lr)
     clip = ppo_cfg.clip_ratio
     ent_sign = -1.0 if ppo_cfg.entropy_bonus else 1.0
 
     def pi_update(actor, opt, obs, act, adv, logp_old):
+        n = obs.shape[0]
+        if mesh is not None:
+            rows = mesh_rows(mesh, n)
+            obs, act, adv, logp_old = (x[rows] for x in (obs, act, adv,
+                                                         logp_old))
+        mean = torch.mean if mesh is None else (lambda x: x.sum() / n)
         out = evaluate_actions(cfg, actor, obs, act)
         logp = out["logp"]
         ratio = torch.exp(logp - logp_old)
         clip_adv = torch.clamp(ratio, 1 - clip, 1 + clip) * adv
-        loss_pi = -torch.mean(torch.minimum(ratio * adv, clip_adv))
-        i_entropy = torch.mean(out["entropy_per_head"][..., 0])
+        loss_pi = -mean(torch.minimum(ratio * adv, clip_adv))
+        i_entropy = mean(out["entropy_per_head"][..., 0])
         total = (ppo_cfg.policy_coefficient * loss_pi +
                  ent_sign * ppo_cfg.entropy_coefficient * i_entropy)
         opt.zero_grad(set_to_none=True)
         total.backward()
-        opt.step()
         with torch.no_grad():
             clipped = (ratio > 1 + clip) | (ratio < 1 - clip)
-            return {"kl": torch.mean(logp_old - logp),
-                    "entropy": torch.mean(out["entropy"]),
-                    "i_entropy": i_entropy.detach(),
-                    "loss_pi": loss_pi.detach(),
-                    "clipfrac": torch.mean(clipped.to(torch.float32))}
+            extras = torch.stack([
+                mean(logp_old - logp), mean(out["entropy"]),
+                i_entropy.detach(), loss_pi.detach(),
+                mean(clipped.to(torch.float32))])
+            if mesh is not None:
+                extras = _sum_over_mesh(actor.parameters(), extras, mesh)
+        opt.step()
+        return dict(zip(("kl", "entropy", "i_entropy", "loss_pi",
+                         "clipfrac"), extras))
 
-    return pi_opt, vf_opt, pi_update, _value_update
+    def v_update(critic, opt, obs, ret):
+        """One step of the value net on the mean squared error to
+        ``ret``."""
+        n = obs.shape[0]
+        if mesh is None:
+            return _value_update(critic, opt, obs, ret)
+        rows = mesh_rows(mesh, n)
+        loss = ((critic(obs[rows]) - ret[rows]) ** 2).sum() / n
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        loss = _sum_over_mesh(critic.parameters(), loss.detach()[None],
+                              mesh)[0]
+        opt.step()
+        return loss
+
+    return pi_opt, vf_opt, pi_update, v_update
 
 
 def _adam(lr: float):
@@ -245,9 +287,13 @@ def ppo(env_fn: Callable | Sequence[Callable],
     — the reference's per-rank seeding (openAIppo.py:264).
 
     ``num_envs`` parallel envs collect ``num_envs * steps_per_epoch``
-    transitions per epoch through an EnvironmentVector (``env_batched``
-    forwarded: True steps every candidate with one host read).
-    ``mesh``/``env_mesh`` wait for ``parallel/`` and raise.
+    transitions per epoch through an EnvironmentVector (``env_mesh`` /
+    ``env_batched`` forwarded: a mesh shards one vector step's candidate
+    decodes over its ranks; True steps every candidate with one host
+    read); ``mesh`` shards the UPDATE batch (``make_update_fns``).  With a
+    mesh, every rank of the ``torch.distributed`` group calls ``ppo`` with
+    the same arguments: the rollout is the same on every rank, and only
+    rank 0 writes logs and checkpoints.
 
     ``device``: where the policy, the value net and the update batch live
     (default: the card; ``"cpu"`` only when asked).  An env that decodes
@@ -266,8 +312,6 @@ def ppo(env_fn: Callable | Sequence[Callable],
     schedule (it is re-invoked at the resumed epoch, not replayed).
     """
     ppo_cfg = ppo_cfg or PPOConfig()
-    _no_mesh(mesh, "mesh")
-    _no_mesh(env_mesh, "env_mesh")
     dev = _policy_device(device)
     if callable(env_fn):
         env_fns = [env_fn] * num_envs
@@ -276,7 +320,7 @@ def ppo(env_fn: Callable | Sequence[Callable],
         env_fns = list(env_fn)
         num_envs = len(env_fns)
         reseed = False
-    vec = EnvironmentVector(env_fns, batched=env_batched)
+    vec = EnvironmentVector(env_fns, batched=env_batched, mesh=env_mesh)
     _check_env_devices(vec.envs, dev)
     if reseed:
         base = getattr(vec.envs[0], "seed_value", ppo_cfg.seed)
@@ -297,7 +341,8 @@ def ppo(env_fn: Callable | Sequence[Callable],
                             "num_envs": num_envs})
     gens = env_generators(ppo_cfg.seed, num_envs, dev)
     actor, critic = init_params(ac_cfg, ppo_cfg.seed, device=dev)
-    pi_opt, vf_opt, pi_update, v_update = make_update_fns(ac_cfg, ppo_cfg)
+    pi_opt, vf_opt, pi_update, v_update = make_update_fns(ac_cfg, ppo_cfg,
+                                                          mesh=mesh)
     pi_opt, vf_opt = pi_opt(actor.parameters()), vf_opt(critic.parameters())
     adim = ac_cfg.buffer_action_dim
 
@@ -450,7 +495,7 @@ def ppo(env_fn: Callable | Sequence[Callable],
         for _ in range(ppo_cfg.train_v_iters):
             v_l = v_update(critic, vf_opt, obs_b, ret_b)
 
-        if checkpoint_dir is not None and (
+        if checkpoint_dir is not None and _is_chief() and (
                 epoch % ppo_cfg.save_freq == 0 or
                 epoch == ppo_cfg.epochs - 1):
             from ..utils.checkpoint import save_checkpoint

@@ -19,12 +19,52 @@ from .ppo import PPOConfig, ppo
 __all__ = ["main", "dryrun_train_step"]
 
 
-def dryrun_train_step(mesh) -> None:
-    """One PPO update with the batch sharded over ``mesh``: waits for
-    ``parallel/``."""
-    raise NotImplementedError(
-        "dryrun_train_step shards the update batch over a mesh: it waits "
-        "for parallel/, ROADMAP.md Queue A item 2")
+def dryrun_train_step(mesh, device=None) -> dict:
+    """One PPO policy + value update on tiny shapes, the batch (2 rows a
+    rank) sharded over ``mesh`` (``parallel.make_mesh``; every rank of it
+    calls this), beside the same update in one process from the same
+    weights and batch.  Returns the sharded update's extras and value
+    loss, and the largest difference between the two updates' parameters
+    (``max_param_diff``), which float rounding alone sets.  ``device``:
+    where this rank runs (default: the card)."""
+    import torch
+
+    from ..parallel.mesh import mesh_position
+    from .model import ActorCriticConfig, init_params
+    from .ppo import make_update_fns
+
+    dev = resolve_device(device)
+    ndev = mesh_position(mesh)[1]
+    cfg = ActorCriticConfig(obs_dim=64, hidden=16, row_range=2, col_range=4,
+                            z=31, max_hot=3)
+    ppo_cfg = PPOConfig(steps_per_epoch=2 * ndev)
+    b = 2 * ndev
+    gen = torch.Generator().manual_seed(0)
+    obs = torch.rand(b, cfg.obs_dim, generator=gen).to(dev)
+    act = torch.cat([torch.zeros(b, 2, dtype=torch.int64),
+                     torch.ones(b, 1, dtype=torch.int64),
+                     torch.zeros(b, cfg.max_hot, dtype=torch.int64)],
+                    -1).to(dev)
+    adv = torch.linspace(-1.0, 1.0, b, device=dev)
+    ret = torch.ones(b, device=dev)
+    logp = torch.full((b,), -3.0, device=dev)
+    out, params = {}, {}
+    for name, m in (("sharded", mesh), ("one_process", None)):
+        actor, critic = init_params(cfg, seed=0, device=dev)
+        pi_opt, vf_opt, pi_update, v_update = make_update_fns(
+            cfg, ppo_cfg, mesh=m)
+        pi_opt, vf_opt = (pi_opt(actor.parameters()),
+                          vf_opt(critic.parameters()))
+        extras = pi_update(actor, pi_opt, obs, act, adv, logp)
+        v_l = v_update(critic, vf_opt, obs, ret)
+        out[name] = {**{k: float(v) for k, v in extras.items()},
+                     "loss_v": float(v_l)}
+        params[name] = [p.detach() for p in (*actor.parameters(),
+                                             *critic.parameters())]
+    diff = max(float((p - q).abs().max()) for p, q in zip(
+        params["sharded"], params["one_process"]))
+    return {**out["sharded"], "one_process": out["one_process"],
+            "max_param_diff": diff, "batch": b}
 
 
 def main(argv=None, device=None):

@@ -1,9 +1,10 @@
 """The port's code-search env, vector env, random agent and CLI commands on
 the CPU (``device="cpu"``: the plain torch route, ``ops/dynamic.py``).
 
-* Every case of ``tests/test_envs.py`` but the mesh one (the port has no
-  ``parallel/`` yet: ``mesh=`` raises) and the PPO trainer's (no ``rl/``
-  trainer yet), mirrored on the port's env.
+* Every case of ``tests/test_envs.py`` but the PPO trainer's (in
+  ``tests/test_torch_train.py``), mirrored on the port's env; the mesh
+  case on a one-rank group here, on 2 and 4 ranks in
+  ``tests/test_torch_parallel.py``.
 * The port env and the JAX env given the same numpy batches (``_transmit``
   replaced on both instances, each still drawing its one seed a step):
   the same legal flags, shifts, observations, accumulated iterations,
@@ -189,9 +190,51 @@ def test_environment_vector_batched_matches_sequential():
             assert es.accumulated_iterations == eb.accumulated_iterations
 
 
-def test_environment_vector_mesh_waits_for_parallel():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        EnvironmentVector([lambda: small_env()], mesh=object())
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank gloo group in this process for the test, then none."""
+    import torch.distributed as dist
+    from ldpc_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_environment_vector_mesh_waits_for_parallel(one_rank_mesh):
+    """``mesh=`` (once refused, waiting for ``parallel/``): with a mesh,
+    ``batched=None`` fuses the step, its candidates go through the
+    sharded decode, and the results equal sequential stepping's."""
+    fns = [(lambda s=s: small_env(seed=s)) for s in (1, 2)]
+    meshed = EnvironmentVector(fns, mesh=one_rank_mesh)
+    seq = EnvironmentVector(fns, batched=False)
+    meshed.reset(), seq.reset()
+    fused = []
+    orig = EnvironmentVector._decode_live
+
+    def spy(self, live, llrs):
+        fused.append(len(live))
+        return orig(self, live, llrs)
+
+    xb, yb = seq.envs[0].x_bits, seq.envs[0].y_bits
+    rng = np.random.RandomState(4)
+    EnvironmentVector._decode_live = spy
+    try:
+        for _ in range(2):
+            actions = []
+            for _ in range(2):
+                a = np.zeros(seq.action_space.shape[0], np.int32)
+                a[xb + yb + rng.randint(0, seq.envs[0].z)] = 1
+                actions.append(a)
+            _, r_mesh, d_mesh, _ = meshed.step(actions)
+            _, r_seq, d_seq, _ = seq.step(actions)
+            assert list(r_mesh) == list(r_seq)
+            assert list(d_mesh) == list(d_seq)
+    finally:
+        EnvironmentVector._decode_live = orig
+    assert fused == [2, 2]
+    for em, es in zip(meshed.envs, seq.envs):
+        assert em.state.shifts == es.state.shifts
+        assert em.accumulated_iterations == es.accumulated_iterations
 
 
 def test_env_iteration_budget_is_default_terminator():

@@ -287,7 +287,7 @@ def test_cli_bench_and_probe_on_the_cpu(cpu_platform, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["evaluate", "--sharded"], NotImplementedError),
+    (["evaluate", "--sharded", "--codewords", "random"], SystemExit),
     (["evaluate", "--codewords", "random", "--engine", "cuda"],
      SystemExit),
     (["evaluate", "--tile-b", "128"], SystemExit),
@@ -298,6 +298,24 @@ def test_cli_bench_and_probe_on_the_cpu(cpu_platform, capsys):
 def test_cli_refuses_later_options(cpu_platform, argv, err):
     with pytest.raises(err):
         cli.main(argv + ["--transmissions", "4", "--iterations", "4"])
+
+
+def test_cli_evaluate_sharded_on_the_cpu(cpu_platform, capsys):
+    """``--sharded`` (once refused, waiting for ``parallel/``) on a
+    one-rank group: the statistics of the unsharded command, on the same
+    seed and batching."""
+    import torch.distributed as dist
+    argv = ["evaluate", "--code", "wifi", "--snr", "3.0", "3.5",
+            "--transmissions", "8", "--batch-size", "4", "--iterations",
+            "10", "--phase-iters", "4", "--engine", "cuda"]
+    try:
+        sharded = cli.main(argv + ["--sharded"]).summary()
+    finally:
+        dist.destroy_process_group()
+    plain = cli.main(argv).summary()
+    assert "[sharded] snr 3.0" in capsys.readouterr().out
+    for k in ("ber", "fer", "avg_iterations", "transmissions"):
+        assert sharded[k] == plain[k], k
 
 
 def test_cli_evaluate_layered_int8_on_the_cpu(cpu_platform, capsys):

@@ -196,12 +196,6 @@ def test_ppo_resume_between_checkpoints_truncates_logs(tmp_path):
 
 def test_ppo_refuses_what_it_cannot_do(tmp_path):
     env_fn = _tiny_env_fn()
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        ppo(env_fn, PPOConfig(epochs=0), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        ppo(env_fn, PPOConfig(epochs=0), env_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        rl_train.dryrun_train_step(object())
     with pytest.raises(ValueError, match="needs a checkpoint_dir"):
         ppo(env_fn, PPOConfig(epochs=0), _ac_cfg(env_fn), resume=True,
             output_dir=tmp_path, device="cpu")
@@ -211,6 +205,37 @@ def test_ppo_refuses_what_it_cannot_do(tmp_path):
 
     with pytest.raises(ValueError, match="same device"):
         ppo(OtherDevice, PPOConfig(epochs=0), device="cpu")
+
+
+def test_ppo_meshes_and_dryrun_train_step_on_one_rank(tmp_path):
+    """``mesh=`` and ``env_mesh=`` (once refused, waiting for
+    ``parallel/``) on a one-rank gloo group: the same steps.tsv as the
+    run without meshes, parameters within float rounding (the sharded
+    losses are sums over the global count, not ``torch.mean``); and
+    ``dryrun_train_step`` within rounding of its one-process update.  On 2
+    and 4 ranks: ``tests/test_torch_parallel.py``."""
+    import torch.distributed as dist
+    from ldpc_tpu_torch.parallel import make_mesh
+    env_fn = _tiny_env_fn()
+    cfg = PPOConfig(steps_per_epoch=2, epochs=2, train_pi_iters=2,
+                    train_v_iters=2, seed=7)
+    mesh = make_mesh(device="cpu")
+    try:
+        runs = {}
+        for name, m in (("mesh", mesh), ("plain", None)):
+            actor, critic, _ = ppo(env_fn, cfg, _ac_cfg(env_fn), num_envs=2,
+                                   mesh=m, env_mesh=m,
+                                   output_dir=tmp_path / name, device="cpu")
+            runs[name] = [p.detach() for p in (*actor.parameters(),
+                                               *critic.parameters())]
+        step = rl_train.dryrun_train_step(mesh, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert (tmp_path / "mesh" / "steps.tsv").read_text() == \
+        (tmp_path / "plain" / "steps.tsv").read_text()
+    for p, q in zip(runs["mesh"], runs["plain"]):
+        torch.testing.assert_close(p, q, rtol=0, atol=1e-6)
+    assert step["batch"] == 2 and step["max_param_diff"] <= 1e-6
 
 
 def test_vpg_end_to_end_tiny(tmp_path):
