@@ -39,7 +39,8 @@ find:
            microbenchmark, the SASS counts, the validation studies
   cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe|random-agent|
            perturb|train|getting-started|post-mortem|reward-surface``
-  dryrun.py ``entry()`` and ``dryrun_multichip(n)``: the driver's checks
+  dryrun.py ``entry()`` and ``dryrun_multichip(n)``: the flagship step and
+           the multi-rank dry run
 
 Entry points run on the card unless called with ``device="cpu"``.
 

@@ -1,4 +1,4 @@
-"""Driver entry points of the port: ``entry()`` and ``dryrun_multichip(n)``,
+"""Dry-run entry points of the port: ``entry()`` and ``dryrun_multichip(n)``,
 the counterparts of the JAX package's functions of the same names.
 
 ``entry()`` returns the flagship step and its example arguments: one
