@@ -186,16 +186,36 @@ no result line:
            and topk_select(reeval_kw={"engine": "cuda", "staged": True})
            on phase 14's steps.tsv (no candidate skipped), `cli
            reward-surface`.  Every process group is destroyed at its end.
-17. the kernels line, the card line again, and the result line.
+17. continuous and studies: (a) the continuous-control suite
+           (ldpc_tpu_torch/rl/{ddpg,sac,trpo}.py; no kernel): ddpg, td3, sac
+           and trpo, 2 epochs of 256 steps each on PointMassEnv on the
+           card, seconds and the last epoch's log; then one update of each
+           from the same weights and batch on the card and on the CPU (TF32
+           off): losses, gradients and parameters within tolerance, and
+           for TRPO the surrogate's gradient, a Fisher-vector product, the
+           natural-gradient step, its KL, surrogate and acceptance; (b) the
+           kernel studies at their defaults (ldpc_tpu_torch/scripts/):
+           layered_ab (B1 flooding against B3 layered cascades, near-earth
+           32,768 words, 3.0-3.6 dB), quantized_ber (B5 int8 against B1
+           bf16 and f32), sched_ab (dep_stride 0/4/8 x popcount_sign 0/1:
+           B8's probe, B6; every variant word-exact) and perturbation_fer
+           (the 33 near-earth codes, 8,192 words a point, 3.2-3.8 dB, the
+           fused kernel with each code's tables as data) and giant_code
+           (synthetic codes, z 2,048-32,768, row-sharded over 8 gloo ranks
+           sharing the card, plain torch; the cross-check with the
+           unsharded decoder exact): each study's seconds and launches, and every FER point in the band of the JAX
+           package's artifact (the two Wilson intervals overlap at the z
+           that holds the study's points at 95% together).
+18. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
 dep_stride replay of phase 11, the microbench script of phase 12, the
 env paths (a), (c) and (d) of phase 13, the trainer's runs (a) and (d)
 of phase 14, the validation paths (c)-(f) of phase 15 that launch a
-kernel, and the sharded paths (a), (b) (the two ranks' sharded parts,
-summed) and (c) of phase 16) clears the launch counts just before it
-and reads them just after; a row of the kernels line gives the launches of
+kernel, the sharded paths (a), (b) (the two ranks' sharded parts,
+summed) and (c) of phase 16, and each study of phase 17 (b)) clears the
+launch counts just before it and reads them just after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
 it no time.  Launches that compare a kernel with its plain version, or time
@@ -203,7 +223,7 @@ it, are counted on no path.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
 no JAX.  Writes nothing but the kernel builds (ldpc_tpu_torch/_build/)
-and, in phases 14-16, the trainer's logs and checkpoints, the studies'
+and, in phases 14-17, the trainers' logs and checkpoints, the studies'
 artifacts and the post-mortem's plots under temporary directories that it
 removes; phase 16's two ranks are processes it starts and waits for.
 """
@@ -466,6 +486,94 @@ JAX_WIFI_FRAMES = {
     "0.6667": {0.0: 2114, 0.5: 43, 1.0: 0, 1.5: 0},
     "0.7500": {1.0: 2858, 1.5: 78, 2.0: 1, 2.5: 0},
     "0.8333": {2.0: 5243, 2.5: 437, 3.0: 7, 3.5: 1, 4.0: 0}}
+
+# Phase 17.  (a) the continuous-control suite (ldpc_tpu_torch/rl/): each
+# algorithm 2 epochs of 256 steps on PointMassEnv, its config's defaults
+# otherwise (updates from step 256); then one update from the same weights
+# and batch on the card and on the CPU, TF32 off: the losses within
+# CONT_RTOL of max(1, |the CPU's|), the gradients within GRAD_RTOL +
+# GRAD_ATOL of each tensor's largest, the parameters after within
+# PARAM_ATOL but where the CPU's gradient is within its own tolerance of 0
+# (Adam's first step moves such an element by up to lr either way).  TRPO:
+# the surrogate's gradient and a Fisher-vector product within FVP_RTOL of
+# their norm; the conjugate-gradient step amplifies float32 rounding (from
+# a gradient and products that agree to 7e-7, the JAX package's and the
+# port's ten-iteration solutions differ by 1.4e-3 of their norm on the CPU,
+# tests/test_torch_trpo.py), so the step, its KL and its surrogate within
+# TRPO_STEP_RTOL, the line search's acceptance equal.
+CONT_EPOCHS = 2
+CONT_STEPS = 256
+CONT_RTOL = 1e-4
+FVP_RTOL = 1e-5
+TRPO_STEP_RTOL = 5e-2
+CONT_ALGOS = ("ddpg", "td3", "sac", "trpo")
+# (b) the kernel studies at their defaults, each a driven path, and the
+# kernel variants each must launch
+STUDY_ARGS: dict[str, list[str]] = {
+    "layered_ab": [], "quantized_ber": [], "sched_ab": [],
+    "perturbation_fer": [], "giant_code": []}
+STUDY_PATHS = {name: f"study {name}" for name in STUDY_ARGS}
+STUDY_KEYS = {
+    "layered_ab": [("min-sum", "bfloat16", "flooding", False),
+                   ("min-sum", "bfloat16", "layered", False)],
+    "quantized_ber": [("min-sum", s, "flooding", False)
+                      for s in ("bfloat16", "float32", "int8")],
+    "sched_ab": [("min-sum", "bfloat16", "flooding", False),
+                 ("min-sum", "bfloat16", "flooding", True),
+                 "barrier_probe"],
+    "perturbation_fer": [("min-sum", "float32", "flooding", False)],
+    "giant_code": []}           # parallel/rowshard.py: plain torch
+# Each study's FER points against the JAX package's artifacts (docs/, not
+# copied to the card's machine), as frame errors of its words: a point
+# passes where the two Wilson intervals overlap, each at the confidence
+# that holds the study's family of points at 95% (Bonferroni: z of 1 -
+# 0.025 / points); whether each point's 95% intervals overlap is logged.
+# docs/layered_ab.json ("results" -> variant -> point "fer" x 32,768)
+JAX_LAYERED_AB_WORDS = 32768
+JAX_LAYERED_AB_FRAMES = {
+    "flooding-p12": {3.0: 28401, 3.2: 10632, 3.4: 769, 3.6: 3},
+    "layered-p6": {3.0: 27863, 3.2: 9609, 3.4: 597, 3.6: 2},
+    "layered-p4-12": {3.0: 27863, 3.2: 9609, 3.4: 597, 3.6: 2}}
+# docs/quantized_ber.json ("stores" -> store -> point "fer" x 32,768; it
+# has no float32 store)
+JAX_QUANT_WORDS = 32768
+JAX_QUANT_FRAMES = {
+    "bfloat16": {3.0: 28416, 3.2: 10634, 3.4: 721, 3.6: 2},
+    "int8": {3.0: 31051, 3.2: 17157, 3.4: 2227, 3.6: 34}}
+# docs/sched_ab.json ("entries" -> s<stride>_t128_p<popcount>_bfloat16 ->
+# "nfail", one count a trial of 16,384 words, duplicates dropped)
+JAX_SCHED_WORDS = 16384
+JAX_SCHED_NFAIL = {(0, False): [3230, 3237, 3242],
+                   (0, True): [3222, 3261, 3278, 3289],
+                   (4, False): [3260, 3266, 3281],
+                   (8, False): [3255, 3286, 3312]}
+# docs/perturbation_fer.json ("variants" -> name -> 3.2/3.4/3.6/3.8 dB
+# "fer" x 8,192)
+JAX_PERTURB_WORDS = 8192
+JAX_PERTURB_FRAMES = {
+    "intact": (2724, 197, 1, 0), "zero_0_0": (1606, 71, 0, 0),
+    "zero_0_1": (1586, 64, 1, 0), "zero_0_2": (1656, 52, 0, 0),
+    "zero_0_3": (1643, 75, 0, 0), "zero_0_4": (1607, 69, 0, 0),
+    "zero_0_5": (1600, 50, 0, 0), "zero_0_6": (1623, 60, 0, 0),
+    "zero_0_7": (1607, 74, 1, 0), "zero_0_8": (1628, 73, 0, 0),
+    "zero_0_9": (1634, 54, 0, 0), "zero_0_10": (1645, 66, 0, 0),
+    "zero_0_11": (1584, 66, 0, 0), "zero_0_12": (1558, 66, 0, 0),
+    "zero_0_13": (1587, 65, 1, 0), "zero_0_14": (1632, 64, 0, 0),
+    "zero_0_15": (1645, 52, 0, 0), "zero_1_0": (1616, 67, 0, 0),
+    "zero_1_1": (1587, 55, 0, 0), "zero_1_2": (1566, 81, 0, 0),
+    "zero_1_3": (1682, 74, 1, 0), "zero_1_4": (1616, 68, 1, 0),
+    "zero_1_5": (1635, 68, 0, 0), "zero_1_6": (1607, 63, 0, 0),
+    "zero_1_7": (1656, 63, 2, 0), "zero_1_8": (1650, 64, 0, 0),
+    "zero_1_9": (1633, 70, 0, 0), "zero_1_10": (1609, 59, 0, 0),
+    "zero_1_11": (1581, 76, 0, 0), "zero_1_12": (1726, 75, 0, 0),
+    "zero_1_13": (1636, 56, 0, 0), "zero_1_14": (1652, 82, 0, 0),
+    "zero_1_15": (1605, 72, 0, 0)}
+JAX_PERTURB_SNRS = ("3.2", "3.4", "3.6", "3.8")
+# docs/giant_code.json ("runs" -> (z, layout) -> frame errors of its words;
+# it ran z = 2,048, 8,192, 32,768 and 131,072, 8 virtual CPU devices)
+JAX_GIANT_FRAMES = {(z, layout): (0, 2 if layout == "1x8" else 4)
+                    for z in (2048, 8192, 32768, 131072)
+                    for layout in ("1x8", "2x4")}
 
 # The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
 # operations over the float32 peak, which counts a fused multiply-add as 2
@@ -2890,6 +2998,377 @@ def phase_parallel(dev, main: dict, steps_tsv: bytes) -> dict:
     return out
 
 
+def _cont_batch(b: int) -> dict:
+    """A replay batch of ``b`` PointMassEnv transitions (uniform random
+    actions, 512 stored), numpy."""
+    from ldpc_tpu_torch.rl.continuous import PointMassEnv, ReplayBuffer
+    env = PointMassEnv(seed=SEED)
+    rng = np.random.RandomState(SEED)
+    buf = ReplayBuffer(env.obs_dim, env.act_dim, 1024)
+    obs = env.reset()
+    for _ in range(512):
+        a = rng.uniform(-1, 1, env.act_dim)
+        obs2, r, done, _ = env.step(a)
+        buf.store(obs, a, r, obs2, done)
+        obs = env.reset() if done else obs2
+    return buf.sample(rng, b)
+
+
+def _grads_params(mods: dict) -> tuple[dict, dict]:
+    """Every parameter's gradient (None where it has none) and value, on
+    the CPU, named ``<module>.<parameter>``."""
+    grads, params = {}, {}
+    for m, mod in mods.items():
+        for n, p in mod.named_parameters():
+            grads[f"{m}.{n}"] = None if p.grad is None else p.grad.cpu()
+            params[f"{m}.{n}"] = p.detach().cpu()
+    return grads, params
+
+
+def _cont_side(name: str, nets_cpu: dict, batch_np: dict, noise, dev):
+    """One update of ``name`` (ddpg, td3, sac) on ``dev`` from copies of
+    ``nets_cpu``: (losses, gradients, parameters after, lr by module)."""
+    import copy
+    import importlib
+    from ldpc_tpu_torch.rl.ppo import _adam
+    d = importlib.import_module("ldpc_tpu_torch.rl.ddpg")
+    nets = {k: copy.deepcopy(v).to(dev) for k, v in nets_cpu.items()}
+    targ = {k: copy.deepcopy(nets[k]).requires_grad_(False) for k in (
+        ("q1", "q2") if name == "sac" else nets)}
+    batch = d.batch_tensors(batch_np, dev)
+    noise = [x.to(dev) for x in noise]
+    if name in ("ddpg", "td3"):
+        cfg = d.DDPGConfig()
+        pi_opt = _adam(cfg.pi_lr)(nets["pi"].parameters())
+        q_opt = _adam(cfg.q_lr)([*nets["q1"].parameters(),
+                                 *nets["q2"].parameters()])
+        losses = {"LossQ": d.q_step(nets, targ, q_opt, batch, cfg,
+                                    name == "td3", 1.0, noise=noise[0]),
+                  "LossPi": d.pi_step(nets, pi_opt, batch)}
+        d.polyak_targets(targ, nets, cfg.polyak)
+        lrs = {"pi": cfg.pi_lr, "q1": cfg.q_lr, "q2": cfg.q_lr}
+    else:
+        s = importlib.import_module("ldpc_tpu_torch.rl.sac")
+        cfg = s.SACConfig()
+        pi_opt = _adam(cfg.lr)(nets["pi"].parameters())
+        q_opt = _adam(cfg.lr)([*nets["q1"].parameters(),
+                               *nets["q2"].parameters()])
+        log_alpha = torch.tensor(np.log(cfg.alpha), dtype=torch.float32,
+                                 device=dev, requires_grad=True)
+        alpha = torch.exp(log_alpha.detach())
+        losses = {"LossQ": s.q_step(nets, targ, q_opt, batch, alpha,
+                                    cfg.gamma, noise=noise[0])}
+        losses["LossPi"], mean_logp = s.pi_step(nets, pi_opt, batch, alpha,
+                                                noise=noise[1])
+        losses["Entropy"] = -mean_logp
+        s.alpha_step(log_alpha, _adam(cfg.lr)([log_alpha]), mean_logp,
+                     -1.0)
+        losses["LogAlpha"] = log_alpha.detach()
+        d.polyak_targets(targ, nets, cfg.polyak)
+        lrs = {"pi": cfg.lr, "q1": cfg.lr, "q2": cfg.lr}
+    grads, params = _grads_params(nets)
+    params.update(_grads_params({f"targ_{k}": v for k, v in
+                                 targ.items()})[1])
+    return ({k: float(v) for k, v in losses.items()}, grads, params, lrs)
+
+
+def _param_excess(got: dict, want: dict, grads: dict, lrs: dict) -> tuple:
+    """(the largest |card - CPU| over PARAM_ATOL, or over lr where the
+    CPU's gradient is within its tolerance of 0; such elements)."""
+    worst, free = 0.0, 0
+    for k, w in want.items():
+        diff = (got[k] - w).abs()
+        tol = torch.full_like(w, PARAM_ATOL)
+        g = grads.get(k.replace("targ_", ""))
+        if g is not None:
+            near0 = g.abs() <= GRAD_RTOL * g.abs() + GRAD_ATOL * float(
+                g.abs().max())
+            lr = lrs[k.replace("targ_", "").split(".")[0]]
+            # a target moves by (1 - rho) of its online element's step
+            scale = 0.005 if k.startswith("targ_") else 1.0
+            tol = torch.where(near0, torch.full_like(w, lr * scale), tol)
+            free += int(near0.sum())
+        worst = max(worst, float((diff / tol).max()))
+    return worst, free
+
+
+def _cont_step_check(name: str, dev) -> dict:
+    """One update of ``name`` from the same weights and batch on the card
+    and on the CPU (phase 17 (a))."""
+    import importlib
+    if name == "trpo":
+        return _trpo_step_check(dev)
+    from ldpc_tpu_torch.rl.continuous import PointMassEnv
+    env = PointMassEnv()
+    mod = importlib.import_module("ldpc_tpu_torch.rl." + (
+        "ddpg" if name == "td3" else name))
+    nets = mod.init_nets(env.obs_dim, env.act_dim, 1.0, SEED, "cpu")
+    b = (mod.SACConfig() if name == "sac" else mod.DDPGConfig()).batch_size
+    batch = _cont_batch(b)
+    rng = np.random.default_rng(SEED)
+    noise = [torch.tensor(rng.standard_normal((b, env.act_dim)),
+                          dtype=torch.float32) for _ in range(2)]
+    card = _cont_side(name, nets, batch, noise, dev)
+    cpu = _cont_side(name, nets, batch, noise, torch.device("cpu"))
+    loss_err = max(abs(card[0][k] - cpu[0][k]) / max(1.0, abs(cpu[0][k]))
+                   for k in cpu[0])
+    grad_excess, grad_rel = _grad_excess(card[1], cpu[1])
+    param_excess, free = _param_excess(card[2], cpu[2], cpu[1], cpu[3])
+    out = {"losses": cpu[0], "loss_err": loss_err,
+           "grad_excess": grad_excess, "grad_rel_err": grad_rel,
+           "param_excess": param_excess, "near_zero_gradients": free}
+    if not (loss_err <= CONT_RTOL and grad_excess <= 1.0
+            and param_excess <= 1.0):
+        raise AssertionError(f"(a) {name}: one update on the card and on "
+                             f"the CPU differ: {out}")
+    return out
+
+
+def _trpo_step_check(dev) -> dict:
+    """TRPO's update from the same weights and rollout on the card and on
+    the CPU: the surrogate's gradient, a Fisher-vector product, the
+    natural-gradient step with its line search, one value step."""
+    import copy
+    import importlib
+    from torch.nn.utils import parameters_to_vector
+    from ldpc_tpu_torch.rl.buffer import PPOBuffer
+    from ldpc_tpu_torch.rl.continuous import GaussianActor, PointMassEnv
+    from ldpc_tpu_torch.rl.ppo import _adam, _value_update
+    t = importlib.import_module("ldpc_tpu_torch.rl.trpo")
+    cfg = t.TRPOConfig()
+    env = PointMassEnv(seed=SEED)
+    actor, critic = t.init_nets(env.obs_dim, env.act_dim, SEED, "cpu")
+    buf = PPOBuffer(env.obs_dim, env.act_dim, CONT_STEPS, cfg.gamma,
+                    cfg.lam, num_entropy_heads=1)
+    rng = np.random.default_rng(SEED)
+    obs = env.reset()
+    with torch.no_grad():
+        for i in range(CONT_STEPS):
+            o = torch.tensor(obs[None])
+            mu, ls = actor(o)
+            a = mu + torch.exp(ls) * torch.tensor(
+                rng.standard_normal(mu.shape), dtype=torch.float32)
+            logp = GaussianActor.log_prob(mu, ls, a)
+            obs2, r, done, _ = env.step(a[0].numpy())
+            buf.store(obs, a[0].numpy(), r, float(critic(o)[0]),
+                      float(logp[0]), 0.0, np.zeros(1))
+            obs = obs2
+            if done or i == CONT_STEPS - 1:
+                buf.finish_path(0.0)
+                obs = env.reset()
+    data = buf.get()
+    v = torch.tensor(rng.standard_normal(sum(
+        p.numel() for p in actor.parameters())), dtype=torch.float32)
+    res = {}
+    for side, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        a, c = copy.deepcopy(actor).to(d), copy.deepcopy(critic).to(d)
+        dd = {k: torch.as_tensor(data[k], device=d)
+              for k in ("obs", "act", "adv", "ret", "logp")}
+        g = t.surrogate_grad(a, dd).cpu()
+        fvp = t.fisher_vector_product(a, dd["obs"],
+                                      t.old_policy(a, dd["obs"]),
+                                      cfg.damping)
+        hv = fvp(v.to(d)).detach().cpu()
+        theta = parameters_to_vector(a.parameters()).detach()
+        stats = t.policy_update(a, dd, cfg)
+        step = (parameters_to_vector(a.parameters()).detach() - theta).cpu()
+        loss_v = float(_value_update(c, _adam(cfg.vf_lr)(c.parameters()),
+                                     dd["obs"], dd["ret"]))
+        res[side] = {"g": g, "hv": hv, "step": step, "stats": stats,
+                     "LossV": loss_v, **dict(zip(("grads", "params"),
+                                                 _grads_params({"vf": c})))}
+    g, w = res["cuda"], res["cpu"]
+
+    def rel(k):
+        return float((g[k] - w[k]).norm() / w[k].norm())
+
+    out = {"grad_rel": rel("g"), "fvp_rel": rel("hv"),
+           "step_rel": rel("step"), "stats": w["stats"],
+           "stats_card": g["stats"],
+           "LossV_err": abs(g["LossV"] - w["LossV"]) / max(1.0, abs(
+               w["LossV"])),
+           "vf_grad_excess": _grad_excess(g["grads"], w["grads"])[0],
+           "vf_param_excess": _param_excess(g["params"], w["params"],
+                                            w["grads"],
+                                            {"vf": cfg.vf_lr})[0]}
+    stat_err = max(abs(g["stats"][k] - w["stats"][k]) / abs(w["stats"][k])
+                   for k in ("KL", "Surrogate"))
+    out["stat_err"] = stat_err
+    if not (out["grad_rel"] <= FVP_RTOL and out["fvp_rel"] <= FVP_RTOL
+            and out["step_rel"] <= TRPO_STEP_RTOL
+            and stat_err <= TRPO_STEP_RTOL
+            and g["stats"]["BacktrackAccepted"] ==
+            w["stats"]["BacktrackAccepted"]
+            and out["LossV_err"] <= CONT_RTOL
+            and out["vf_grad_excess"] <= 1.0
+            and out["vf_param_excess"] <= 1.0):
+        raise AssertionError(f"(a) trpo: one update on the card and on the "
+                             f"CPU differ: {out}")
+    return out
+
+
+def phase_continuous(dev) -> dict:
+    """(a) the continuous-control suite on the card: 2 epochs of each
+    algorithm, then one update on the card against the CPU."""
+    import contextlib
+    import io
+    import pathlib
+    import tempfile
+    from ldpc_tpu_torch import rl
+    tag = "17cont"
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    runs = {"ddpg": (rl.ddpg, rl.DDPGConfig), "td3": (rl.td3, rl.DDPGConfig),
+            "sac": (rl.sac, rl.SACConfig), "trpo": (rl.trpo, rl.TRPOConfig)}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in CONT_ALGOS:
+            fn, cfg_cls = runs[name]
+            cfg = cfg_cls(steps_per_epoch=CONT_STEPS, epochs=CONT_EPOCHS)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                fn(lambda: rl.PointMassEnv(seed=SEED), cfg,
+                   output_dir=f"{tmp}/{name}", device=dev)
+            sync(dev)
+            dt = time.perf_counter() - t0
+            lines = (pathlib.Path(tmp) / name / "progress.txt").read_text(
+                ).splitlines()
+            head = lines[0].split("\t")
+            rows = [dict(zip(head, map(float, ln.split("\t"))))
+                    for ln in lines[1:]]
+            if len(rows) != CONT_EPOCHS or not all(
+                    np.isfinite(list(r.values())).all() for r in rows):
+                raise AssertionError(f"(a) {name}: progress {rows}")
+            last = {k: v for k, v in rows[-1].items() if k != "Time"}
+            t0 = time.perf_counter()
+            step = _cont_step_check(name, dev)
+            out[name] = {"seconds": dt, "steps_per_s":
+                         CONT_STEPS * CONT_EPOCHS / dt, "last_epoch": last,
+                         "step_check": step,
+                         "check_seconds": time.perf_counter() - t0}
+            log(tag, f"(a) {name}: {CONT_EPOCHS} epochs x {CONT_STEPS} steps "
+                f"on the card in {dt:.2f} s "
+                f"({CONT_STEPS * CONT_EPOCHS / dt:.0f} env steps/s); last "
+                "epoch " + ", ".join(f"{k} {v:.4g}" for k, v in last.items())
+                + "; one update card vs CPU: " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in step.items()
+                    if isinstance(v, float)))
+    return out
+
+
+def _family_z(points: int) -> float:
+    """The z of each point's interval that holds a family of ``points`` at
+    95% (Bonferroni, two-sided)."""
+    import statistics
+    return statistics.NormalDist().inv_cdf(1 - 0.025 / points)
+
+
+def _check_points(tag: str, name: str, pts: list) -> dict:
+    """``pts``: (label, frames, words, JAX frames, JAX words).  Fails unless
+    every point's Wilson interval overlaps the JAX one's at the family's z;
+    logs the points whose 95% intervals do not overlap."""
+    if not pts:
+        log(tag, f"(b) {name}: no point the JAX artifact has")
+        return {"points": 0}
+    z = _family_z(len(pts))
+    bad, out95 = [], []
+    for label, k, n, kr, nr in pts:
+        ok = _overlap(wilson_interval(k, n, z)[1:],
+                      wilson_interval(kr, nr, z)[1:])
+        if not _overlap(wilson_interval(k, n)[1:],
+                        wilson_interval(kr, nr)[1:]):
+            out95.append(f"{label} {k}/{n} vs JAX {kr}/{nr}")
+        if not ok:
+            bad.append(f"{label} {k}/{n} vs JAX {kr}/{nr}")
+    log(tag, f"(b) {name}: {len(pts)} FER points against the JAX "
+        f"artifact's: {len(pts) - len(bad)} within the family's 95% band "
+        f"(each interval at z {z:.3f}), {len(pts) - len(out95)} within the "
+        "point's own 95% band" + (f"; outside it ({len(out95)}): "
+                                  f"{out95[:8]}" if out95 else ""))
+    if bad:
+        raise AssertionError(f"(b) {name}: outside the band: {bad}")
+    return {"points": len(pts), "z": z, "outside_95": out95}
+
+
+def phase_studies(dev) -> dict:
+    """(b) the kernel studies at their defaults, each writing into a
+    temporary directory: every FER point in the JAX artifact's band,
+    sched_ab's variants word-exact, each study's launches."""
+    import tempfile
+    from ldpc_tpu_torch.scripts import (giant_code, layered_ab,
+                                        perturbation_fer, quantized_ber,
+                                        sched_ab)
+    tag = "17studies"
+    mods = {"layered_ab": layered_ab, "quantized_ber": quantized_ber,
+            "sched_ab": sched_ab, "perturbation_fer": perturbation_fer,
+            "giant_code": giant_code}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mod in mods.items():
+            clear_launches()
+            t0 = time.perf_counter()
+            res = mod.main(STUDY_ARGS[name] + ["--out", f"{tmp}/{name}"])
+            sync(dev)
+            dt = time.perf_counter() - t0
+            got = _val_record(STUDY_PATHS[name], STUDY_KEYS[name])
+            out[name] = {"seconds": dt, "launches": got, "result": res}
+            log(tag, f"(b) {name}: {dt:.2f} s, adopt {res.get('adopt', '-')}"
+                f", launches {got}")
+        r = out["layered_ab"]["result"]
+        pts = [(f"{v} {snr}", p["frames"], r["batch"],
+                JAX_LAYERED_AB_FRAMES[v][float(snr)], JAX_LAYERED_AB_WORDS)
+               for v, row in r["results"].items() for snr, p in row.items()]
+        out["layered_ab"]["band"] = _check_points(tag, "layered_ab", pts)
+        r = out["quantized_ber"]["result"]
+        pts = [(f"{st} {p['snr_db']}", round(p["fer"] * r["words"]),
+                r["words"], JAX_QUANT_FRAMES[st][p["snr_db"]],
+                JAX_QUANT_WORDS)
+               for st, row in r["stores"].items() if st in JAX_QUANT_FRAMES
+               for p in row]
+        out["quantized_ber"]["band"] = _check_points(tag, "quantized_ber",
+                                                     pts)
+        log(tag, "(b) quantized_ber float32 (no JAX point): FER " + ", ".join(
+            f"{p['snr_db']} dB {p['fer']:.5f}"
+            for p in r["stores"]["float32"]))
+        r = out["sched_ab"]["result"]
+        if not all(e["exact"] for e in r["entries"].values()):
+            raise AssertionError(f"(b) sched_ab: {r['entries']}")
+        ctx = r["context"]
+        pts = [(k, sum(e["nfail"]), ctx["batch"] * e["trials"],
+                sum(JAX_SCHED_NFAIL[(e["dep_stride"], e["popcount_sign"])]),
+                JAX_SCHED_WORDS * len(JAX_SCHED_NFAIL[
+                    (e["dep_stride"], e["popcount_sign"])]))
+               for k, e in r["entries"].items()
+               if (e["dep_stride"], e["popcount_sign"]) in JAX_SCHED_NFAIL]
+        out["sched_ab"]["band"] = _check_points(tag, "sched_ab", pts)
+        log(tag, f"(b) sched_ab: {len(r['entries'])} variants word-exact; "
+            "best ms " + ", ".join(f"{k} {e['best_ms']:.3f}"
+                                   for k, e in r["entries"].items()))
+        r = out["perturbation_fer"]["result"]
+        pts = [(f"{v} {snr}", p["frames"], r["words"],
+                JAX_PERTURB_FRAMES[v][JAX_PERTURB_SNRS.index(snr)],
+                JAX_PERTURB_WORDS)
+               for v, row in r["variants"].items() for snr, p in row.items()]
+        out["perturbation_fer"]["band"] = _check_points(
+            tag, "perturbation_fer", pts)
+        r = out["giant_code"]["result"]
+        if not r["crosscheck"]["exact"]:
+            raise AssertionError(f"(b) giant_code: {r['crosscheck']}")
+        pts = [(f"z {g['z']} {g['layout']}", g["frames"], g["words"],
+                *JAX_GIANT_FRAMES[(g["z"], g["layout"])])
+               for g in r["runs"] if (g["z"], g["layout"]) in
+               JAX_GIANT_FRAMES]
+        out["giant_code"]["band"] = _check_points(tag, "giant_code", pts)
+        log(tag, f"(b) giant_code: {r['ranks']} gloo ranks on the card, "
+            f"the cross-check (z {r['crosscheck']['z']}) exact; " + ", ".join(
+                f"z {g['z']} {g['layout']} {g['bit_per_s']:.4g} bit/s "
+                f"({g['state_mib_per_device']:.1f} MiB a rank, "
+                f"{g['avg_iterations']:.2f} iterations)" for g in r["runs"]))
+    log(tag, "seconds by study: " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in out.items()))
+    return out
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -2947,6 +3426,8 @@ def run(dev: torch.device) -> dict:
     trainer = phase_trainer(dev)
     validation = phase_validation(dev)
     parallel = phase_parallel(dev, main, trainer["steps_tsv"])
+    continuous = phase_continuous(dev)
+    studies = phase_studies(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -3014,7 +3495,8 @@ def run(dev: torch.device) -> dict:
     print(json.dumps(kernels), flush=True)
     return {"smi": smi, "kernels": kernels, "main": main, "split": split,
             "microbench": mb, "env": env, "trainer": trainer,
-            "validation": validation, "parallel": parallel}
+            "validation": validation, "parallel": parallel,
+            "continuous": continuous, "studies": studies}
 
 
 def main() -> int:

@@ -23,7 +23,9 @@ find:
            on the CPU) and its vector container
   rl/      the autoregressive actor-critic, the GAE buffer, PPO (vector
            rollout, exact resume) and VPG, the trainer's entry point, the
-           random-search baseline
+           random-search baseline; the continuous-control suite (DDPG/TD3,
+           SAC, TRPO, their networks, replay buffer and point-mass env)
+  models/  the networks of ``rl/`` under the conventional name
   utils/   device selection, the bounded cache, the experiment loggers,
            checkpoints (``torch.save``), experiment grids, artifact
            provenance
@@ -36,7 +38,9 @@ find:
            surface), the live dashboards
   csrc/    CUDA sources and their nvcc + ctypes build
   scripts/ ``python -m ldpc_tpu_torch.scripts.<name>``: the A/Bs, the
-           microbenchmark, the SASS counts, the validation studies
+           microbenchmark, the SASS counts, the validation studies, the
+           kernel studies (layered_ab, quantized_ber, sched_ab,
+           perturbation_fer)
   cli.py   ``python -m ldpc_tpu_torch.cli evaluate|bench|probe|random-agent|
            perturb|train|getting-started|post-mortem|reward-surface``
   dryrun.py ``entry()`` and ``dryrun_multichip(n)``: the flagship step and
@@ -57,5 +61,5 @@ Quick start (on the card)::
 
 __version__ = "0.2.0"
 
-__all__ = ["codes", "ops", "sim", "envs", "rl", "utils", "native",
-           "analysis", "csrc", "scripts", "parallel"]
+__all__ = ["codes", "ops", "sim", "envs", "rl", "models", "utils",
+           "native", "analysis", "csrc", "scripts", "parallel"]

@@ -68,7 +68,8 @@ from ..utils.cache import BoundedCache
 from ..utils.device import resolve_device
 from .spaces import BinarySpace, Uint8Space
 
-__all__ = ["LdpcCodeSearchEnv", "DecodeCounts", "DEFAULT_SNR_POINTS",
+__all__ = ["LdpcCodeSearchEnv", "DecodeCounts", "route_counts_fn",
+           "DEFAULT_SNR_POINTS",
            "DEFAULT_NUM_TRANSMISSIONS", "DEFAULT_NUM_ITERATIONS",
            "DEFAULT_TIME_BUDGET_S"]
 
@@ -103,6 +104,39 @@ def _to_host(cols: dict) -> dict:
                   v.astype(np.float32) if dt == torch.float32 else
                   v.astype(np.int64))
     return out
+
+
+def route_counts_fn(code: QCCode, max_iters: int, *, kind: str, device,
+                    dmax_cn: int, dmax_vn: int, backend: str = "dynamic"):
+    """``fn(llr[B, n] float32) -> (errors, iterations, success)`` of the
+    env's decode route for ``code`` on ``device`` (see the module note):
+    with the ``"dynamic"`` backend the fused kernel on the card and
+    ``ops/dynamic.py`` at the degree caps on the CPU; any other backend
+    ``ops/decoder.py``."""
+    device = torch.device(device)
+    if backend == "dynamic" and device.type == "cuda":
+        from ..ops.cuda_static import make_static_sweep_decoder
+        return make_static_sweep_decoder(code, max_iters, kind=kind,
+                                         store_dtype="float32",
+                                         device=device)
+    if backend == "dynamic":
+        from ..ops.dynamic import dynamic_plan, make_dynamic_decoder
+        plan = dynamic_plan(code, dmax_cn, dmax_vn, device=device)
+        dyn = make_dynamic_decoder(code.z, code.block_rows, code.block_cols,
+                                   dmax_cn, dmax_vn, max_iters, kind=kind)
+
+        def dec(llr):
+            return dyn(plan, llr)
+    else:
+        from ..ops.decoder import decoder_for_code
+        dec = decoder_for_code(code, max_iters, kind=kind)
+
+    def fn(llr):
+        res = dec(llr)
+        return (res.hard.sum(-1, dtype=torch.int32), res.iterations,
+                res.success)
+
+    return fn
 
 
 class LdpcCodeSearchEnv:
@@ -226,35 +260,15 @@ class LdpcCodeSearchEnv:
         fn = self._decoders.get(key)
         if fn is not None:
             return fn
-        kind = self.decoder_kind
-        if self.decoder_backend == "dynamic" and self.device.type == "cuda":
-            from ..ops.cuda_static import make_static_sweep_decoder
-            dec = make_static_sweep_decoder(
-                code, max_iters, kind=kind, store_dtype="float32",
-                device=self.device)
+        route = route_counts_fn(code, max_iters, kind=self.decoder_kind,
+                                device=self.device,
+                                dmax_cn=self.dmax_cn_cap,
+                                dmax_vn=self.dmax_vn_cap,
+                                backend=self.decoder_backend)
 
-            def fn(llr):
-                return DecodeCounts(*dec(llr))
-        else:
-            if self.decoder_backend == "dynamic":
-                from ..ops.dynamic import dynamic_plan, make_dynamic_decoder
-                plan = dynamic_plan(code, self.dmax_cn_cap,
-                                    self.dmax_vn_cap, device=self.device)
-                dyn = make_dynamic_decoder(
-                    code.z, code.block_rows, code.block_cols,
-                    self.dmax_cn_cap, self.dmax_vn_cap, max_iters,
-                    kind=kind)
+        def fn(llr):
+            return DecodeCounts(*route(llr))
 
-                def dec(llr):
-                    return dyn(plan, llr)
-            else:
-                from ..ops.decoder import decoder_for_code
-                dec = decoder_for_code(code, max_iters, kind=kind)
-
-            def fn(llr):
-                res = dec(llr)
-                return DecodeCounts(res.hard.sum(-1, dtype=torch.int32),
-                                    res.iterations, res.success)
         self._decoders[key] = fn
         return fn
 
