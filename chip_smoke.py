@@ -3027,10 +3027,12 @@ def _grads_params(mods: dict) -> tuple[dict, dict]:
 
 def _cont_side(name: str, nets_cpu: dict, batch_np: dict, noise, dev):
     """One update of ``name`` (ddpg, td3, sac) on ``dev`` from copies of
-    ``nets_cpu``: (losses, gradients, parameters after, lr by module)."""
+    ``nets_cpu``, through the algorithm's own ``update`` (SAC with
+    ``auto_alpha``): (losses, gradients, parameters after, lr by
+    module)."""
     import copy
     import importlib
-    from ldpc_tpu_torch.rl.ppo import _adam
+    from ldpc_tpu_torch.rl.continuous import PointMassEnv
     d = importlib.import_module("ldpc_tpu_torch.rl.ddpg")
     nets = {k: copy.deepcopy(v).to(dev) for k, v in nets_cpu.items()}
     targ = {k: copy.deepcopy(nets[k]).requires_grad_(False) for k in (
@@ -3039,32 +3041,19 @@ def _cont_side(name: str, nets_cpu: dict, batch_np: dict, noise, dev):
     noise = [x.to(dev) for x in noise]
     if name in ("ddpg", "td3"):
         cfg = d.DDPGConfig()
-        pi_opt = _adam(cfg.pi_lr)(nets["pi"].parameters())
-        q_opt = _adam(cfg.q_lr)([*nets["q1"].parameters(),
-                                 *nets["q2"].parameters()])
-        losses = {"LossQ": d.q_step(nets, targ, q_opt, batch, cfg,
-                                    name == "td3", 1.0, noise=noise[0]),
-                  "LossPi": d.pi_step(nets, pi_opt, batch)}
-        d.polyak_targets(targ, nets, cfg.polyak)
+        losses = d.update(nets, targ, d.optimizers(nets, cfg), batch, cfg,
+                          td3_mode=name == "td3", act_limit=1.0,
+                          policy=True, noise=noise[0])
         lrs = {"pi": cfg.pi_lr, "q1": cfg.q_lr, "q2": cfg.q_lr}
     else:
         s = importlib.import_module("ldpc_tpu_torch.rl.sac")
-        cfg = s.SACConfig()
-        pi_opt = _adam(cfg.lr)(nets["pi"].parameters())
-        q_opt = _adam(cfg.lr)([*nets["q1"].parameters(),
-                               *nets["q2"].parameters()])
+        cfg = s.SACConfig(auto_alpha=True)
         log_alpha = torch.tensor(np.log(cfg.alpha), dtype=torch.float32,
                                  device=dev, requires_grad=True)
-        alpha = torch.exp(log_alpha.detach())
-        losses = {"LossQ": s.q_step(nets, targ, q_opt, batch, alpha,
-                                    cfg.gamma, noise=noise[0])}
-        losses["LossPi"], mean_logp = s.pi_step(nets, pi_opt, batch, alpha,
-                                                noise=noise[1])
-        losses["Entropy"] = -mean_logp
-        s.alpha_step(log_alpha, _adam(cfg.lr)([log_alpha]), mean_logp,
-                     -1.0)
+        losses = s.update(nets, targ, s.optimizers(nets, log_alpha, cfg),
+                          log_alpha, batch, cfg, PointMassEnv().act_dim,
+                          noise=tuple(noise))
         losses["LogAlpha"] = log_alpha.detach()
-        d.polyak_targets(targ, nets, cfg.polyak)
         lrs = {"pi": cfg.lr, "q1": cfg.lr, "q2": cfg.lr}
     grads, params = _grads_params(nets)
     params.update(_grads_params({f"targ_{k}": v for k, v in

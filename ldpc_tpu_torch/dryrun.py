@@ -36,17 +36,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import pathlib
-import subprocess
-import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 
-from .parallel.mesh import _free_port
+from .parallel.mesh import spawn_module_ranks
 
 __all__ = ["entry", "dryrun_multichip", "DRYRUN_SEED", "TINY", "FULL"]
 
@@ -283,39 +279,12 @@ def dryrun_multichip(n_devices: int, *, device=None, backend: str | None =
     gloo on the CPU by default; ``backend="gloo"`` with the card puts every
     rank on one card.  Raises if a rank fails or the ranks take more than
     ``timeout_s``; every process is stopped either way."""
-    root = pathlib.Path(__file__).resolve().parent.parent
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
-    if device == "cpu":
-        env.setdefault("OMP_NUM_THREADS", "1")
-    port = _free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(n_devices)]
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "ldpc_tpu_torch.dryrun", str(port),
-             str(r), str(n_devices), str(device or ""), str(backend or ""),
-             json.dumps(config or TINY), outs[r]], env=env, cwd=root,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for r in range(n_devices)]
-        failed = []
-        deadline = time.monotonic() + timeout_s
-        try:
-            for r, p in enumerate(procs):
-                _, err = p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic()))
-                if p.returncode != 0:
-                    failed.append(f"rank {r} exited {p.returncode}:\n"
-                                  f"{err[-4000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if failed:
-            raise RuntimeError("dryrun_multichip failed: " +
-                               "\n".join(failed))
-        return [json.loads(pathlib.Path(o).read_text()) for o in outs]
+    return spawn_module_ranks(
+        "ldpc_tpu_torch.dryrun",
+        lambda r, port, report: [str(port), str(r), str(n_devices),
+                                 str(device or ""), str(backend or ""),
+                                 json.dumps(config or TINY), report],
+        n_devices, timeout_s, one_thread=device == "cpu")
 
 
 if __name__ == "__main__":

@@ -203,10 +203,11 @@ class LdpcCodeSearchEnv:
         self.time_budget_s = float(time_budget_s)
         # Floor-aware reward shaping: subtract ``sum_i penalty_i * FER``
         # at snr_points[floor_snr_index_i] from the fitted-line reward; a
-        # scalar broadcasts against a sequence.  ``floor_penalty_scale``
-        # multiplies every term (an annealing knob a training loop can
-        # ramp per epoch).  0.0 penalties = reference reward
-        # (ldpc_env.py:319-345).
+        # scalar broadcasts against a sequence.  An index counts from the
+        # end when negative (the default -1 is the highest point) and must
+        # name one of the points.  ``floor_penalty_scale`` multiplies every
+        # term (an annealing knob a training loop can ramp per epoch).  0.0
+        # penalties = reference reward (ldpc_env.py:319-345).
         pens = np.atleast_1d(np.asarray(floor_penalty, np.float64))
         idxs = np.atleast_1d(np.asarray(floor_snr_index, np.int64))
         if pens.shape[0] != idxs.shape[0]:
@@ -218,8 +219,13 @@ class LdpcCodeSearchEnv:
                 raise ValueError(
                     f"floor_penalty and floor_snr_index lengths differ: "
                     f"{pens.shape[0]} vs {idxs.shape[0]}")
+        k = len(self.snr_points)
+        bad = idxs[(idxs < -k) | (idxs >= k)]
+        if bad.size:
+            raise ValueError(f"floor_snr_index {bad.tolist()} out of range "
+                             f"for {k} SNR points")
         self.floor_penalties = pens
-        self.floor_snr_indices = idxs
+        self.floor_snr_indices = idxs % k
         self.floor_penalty_scale = 1.0
         # The primary episode terminator is the decode-iteration budget
         # (deterministic, so episode lengths reproduce across routes,

@@ -23,8 +23,15 @@ paths, mpi_pytorch.py:22-26).
 from __future__ import annotations
 
 import datetime
+import json
 import os
+import pathlib
 import socket
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -36,7 +43,7 @@ from ..utils.device import resolve_device
 
 __all__ = ["initialize_distributed", "make_mesh", "make_hierarchical_mesh",
            "data_sharding", "replicated_sharding", "process_batch_slice",
-           "DATA_AXIS", "DCN_AXIS", "ICI_AXIS"]
+           "spawn_module_ranks", "DATA_AXIS", "DCN_AXIS", "ICI_AXIS"]
 
 DATA_AXIS = "data"
 DCN_AXIS = "dcn"
@@ -48,6 +55,54 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def spawn_module_ranks(module: str,
+                       argv_of_rank: Callable[[int, int, str], list[str]],
+                       n: int, timeout_s: float, *,
+                       one_thread: bool = False) -> list[dict | None]:
+    """Run ``python -m module *argv_of_rank(rank, port, report)`` for ranks
+    0 .. n-1 from the repository's root, every rank given one free local
+    ``port`` and its own ``report`` path; wait for all of them (at most
+    ``timeout_s`` together) and return the JSON each rank wrote to its
+    ``report``, rank 0 first (None where a rank wrote none).
+
+    A rank that exits nonzero raises ``RuntimeError`` with the end of its
+    stderr; every process is stopped either way.  ``one_thread`` sets
+    ``OMP_NUM_THREADS=1`` in the ranks unless it is set already."""
+    root = pathlib.Path(__file__).resolve().parents[2]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
+    if one_thread:
+        env.setdefault("OMP_NUM_THREADS", "1")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        reports = [pathlib.Path(tmp) / f"rank{r}.json" for r in range(n)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", module,
+             *argv_of_rank(r, port, str(reports[r]))], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(n)]
+        failed = []
+        deadline = time.monotonic() + timeout_s
+        try:
+            for r, p in enumerate(procs):
+                _, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+                if p.returncode != 0:
+                    failed.append(f"rank {r} exited {p.returncode}:\n"
+                                  f"{err[-4000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if failed:
+            raise RuntimeError(f"{module} ranks failed:\n" +
+                               "\n".join(failed))
+        return [json.loads(f.read_text()) if f.exists() else None
+                for f in reports]
 
 
 def initialize_distributed(coordinator_address: str | None = None,

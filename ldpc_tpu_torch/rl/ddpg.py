@@ -35,8 +35,8 @@ from .continuous import (DeterministicActor, QCritic, ReplayBuffer,
                          init_module, polyak_update)
 from .ppo import _adam
 
-__all__ = ["DDPGConfig", "ddpg", "td3", "init_nets", "batch_tensors",
-           "q_step", "pi_step", "polyak_targets"]
+__all__ = ["DDPGConfig", "ddpg", "td3", "init_nets", "optimizers",
+           "batch_tensors", "update", "q_step", "pi_step", "polyak_targets"]
 
 
 @dataclasses.dataclass
@@ -69,6 +69,13 @@ def init_nets(obs_dim: int, act_dim: int, act_limit: float, seed: int,
                                                  act_limit), gen, device),
             "q1": init_module(QCritic(obs_dim, act_dim), gen, device),
             "q2": init_module(QCritic(obs_dim, act_dim), gen, device)}
+
+
+def optimizers(nets: dict, cfg: DDPGConfig) -> dict:
+    """{"pi": the actor's Adam, "q": one Adam over both critics}."""
+    return {"pi": _adam(cfg.pi_lr)(nets["pi"].parameters()),
+            "q": _adam(cfg.q_lr)([*nets["q1"].parameters(),
+                                  *nets["q2"].parameters()])}
 
 
 def batch_tensors(batch: dict, device) -> dict:
@@ -130,6 +137,21 @@ def polyak_targets(targ: dict, nets: dict, rho: float) -> None:
         polyak_update(targ[k], nets[k], rho)
 
 
+def update(nets: dict, targ: dict, opts: dict, batch: dict,
+           cfg: DDPGConfig, *, td3_mode: bool, act_limit: float,
+           policy: bool, generator: torch.Generator | None = None,
+           noise: torch.Tensor | None = None) -> dict:
+    """One update from ``batch``: a Q step, then, where ``policy``, a
+    policy step and a Polyak step of every target.  Returns {"LossQ"} and,
+    with the policy step, "LossPi", each before its step."""
+    losses = {"LossQ": q_step(nets, targ, opts["q"], batch, cfg, td3_mode,
+                              act_limit, generator, noise)}
+    if policy:
+        losses["LossPi"] = pi_step(nets, opts["pi"], batch)
+        polyak_targets(targ, nets, cfg.polyak)
+    return losses
+
+
 def ddpg(env_fn: Callable, cfg: DDPGConfig | None = None, *,
          td3_mode: bool = False, logger: EpochLogger | None = None,
          output_dir=None, device=None):
@@ -146,9 +168,7 @@ def ddpg(env_fn: Callable, cfg: DDPGConfig | None = None, *,
     nets = init_nets(obs_dim, act_dim, act_limit, cfg.seed, dev)
     targ = {k: copy.deepcopy(v).requires_grad_(False)
             for k, v in nets.items()}
-    pi_opt = _adam(cfg.pi_lr)(nets["pi"].parameters())
-    q_opt = _adam(cfg.q_lr)([*nets["q1"].parameters(),
-                             *nets["q2"].parameters()])
+    opts = optimizers(nets, cfg)
 
     logger = logger or EpochLogger(output_dir=output_dir,
                                    exp_name="td3" if td3_mode else "ddpg")
@@ -182,11 +202,13 @@ def ddpg(env_fn: Callable, cfg: DDPGConfig | None = None, *,
             for _ in range(cfg.update_every):
                 batch = batch_tensors(buf.sample(rng_np, cfg.batch_size),
                                       dev)
-                q_l = q_step(nets, targ, q_opt, batch, cfg, td3_mode,
-                             act_limit, gen)
-                if not td3_mode or updates_done % cfg.policy_delay == 0:
-                    pi_l = pi_step(nets, pi_opt, batch)
-                    polyak_targets(targ, nets, cfg.polyak)
+                losses = update(
+                    nets, targ, opts, batch, cfg, td3_mode=td3_mode,
+                    act_limit=act_limit, generator=gen,
+                    policy=(not td3_mode
+                            or updates_done % cfg.policy_delay == 0))
+                q_l = losses["LossQ"]
+                pi_l = losses.get("LossPi", pi_l)
                 updates_done += 1
 
         if (t + 1) % cfg.steps_per_epoch == 0:

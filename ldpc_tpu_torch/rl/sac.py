@@ -33,8 +33,8 @@ from .continuous import (QCritic, ReplayBuffer, SquashedGaussianActor,
 from .ddpg import _adam_step, batch_tensors, polyak_targets
 from .ppo import _adam
 
-__all__ = ["SACConfig", "sac", "init_nets", "q_step", "pi_step",
-           "alpha_step"]
+__all__ = ["SACConfig", "sac", "init_nets", "optimizers", "update",
+           "q_step", "pi_step", "alpha_step"]
 
 
 @dataclasses.dataclass
@@ -64,6 +64,15 @@ def init_nets(obs_dim: int, act_dim: int, act_limit: float, seed: int,
                                                     act_limit), gen, device),
             "q1": init_module(QCritic(obs_dim, act_dim), gen, device),
             "q2": init_module(QCritic(obs_dim, act_dim), gen, device)}
+
+
+def optimizers(nets: dict, log_alpha: torch.Tensor, cfg: SACConfig) -> dict:
+    """{"pi": the actor's Adam, "q": one Adam over both critics, "alpha":
+    ``log_alpha``'s Adam}."""
+    return {"pi": _adam(cfg.lr)(nets["pi"].parameters()),
+            "q": _adam(cfg.lr)([*nets["q1"].parameters(),
+                                *nets["q2"].parameters()]),
+            "alpha": _adam(cfg.lr)([log_alpha])}
 
 
 def q_step(nets: dict, targ: dict, opt, batch: dict, alpha, gamma: float,
@@ -106,6 +115,29 @@ def alpha_step(log_alpha: torch.Tensor, opt, mean_logp,
                -log_alpha * (mean_logp + target_entropy))
 
 
+def update(nets: dict, targ: dict, opts: dict, log_alpha: torch.Tensor,
+           batch: dict, cfg: SACConfig, act_dim: int,
+           generator: torch.Generator | None = None,
+           noise: tuple = (None, None)) -> dict:
+    """One update from ``batch`` at the temperature ``exp(log_alpha)``: a Q
+    step (its noise ``noise[0]`` or a draw from ``generator``), a policy
+    step (``noise[1]`` or the next draw), with ``cfg.auto_alpha`` a step of
+    ``log_alpha`` toward ``cfg.target_entropy`` (by default ``-act_dim``),
+    and a Polyak step of the target critics.  Returns
+    {"LossQ", "LossPi", "Entropy"}, each before its step."""
+    alpha = torch.exp(log_alpha.detach())
+    loss_q = q_step(nets, targ, opts["q"], batch, alpha, cfg.gamma,
+                    generator, noise[0])
+    loss_pi, mean_logp = pi_step(nets, opts["pi"], batch, alpha, generator,
+                                 noise[1])
+    if cfg.auto_alpha:
+        alpha_step(log_alpha, opts["alpha"], mean_logp,
+                   cfg.target_entropy if cfg.target_entropy is not None
+                   else -float(act_dim))
+    polyak_targets(targ, nets, cfg.polyak)
+    return {"LossQ": loss_q, "LossPi": loss_pi, "Entropy": -mean_logp}
+
+
 def sac(env_fn: Callable, cfg: SACConfig | None = None, *,
         logger: EpochLogger | None = None, output_dir=None, device=None):
     """Run SAC on ``device`` (default: the card); returns ({"pi", "q1",
@@ -122,14 +154,9 @@ def sac(env_fn: Callable, cfg: SACConfig | None = None, *,
     nets = init_nets(obs_dim, act_dim, act_limit, cfg.seed, dev)
     targ = {k: copy.deepcopy(nets[k]).requires_grad_(False)
             for k in ("q1", "q2")}
-    pi_opt = _adam(cfg.lr)(nets["pi"].parameters())
-    q_opt = _adam(cfg.lr)([*nets["q1"].parameters(),
-                           *nets["q2"].parameters()])
-    target_entropy = (cfg.target_entropy if cfg.target_entropy is not None
-                      else -float(act_dim))
     log_alpha = torch.tensor(np.log(cfg.alpha), dtype=torch.float32,
                              device=dev, requires_grad=True)
-    alpha_opt = _adam(cfg.lr)([log_alpha])
+    opts = optimizers(nets, log_alpha, cfg)
 
     logger = logger or EpochLogger(output_dir=output_dir, exp_name="sac")
     buf = ReplayBuffer(obs_dim, act_dim, cfg.replay_size)
@@ -160,15 +187,10 @@ def sac(env_fn: Callable, cfg: SACConfig | None = None, *,
             for _ in range(cfg.update_every):
                 batch = batch_tensors(buf.sample(rng_np, cfg.batch_size),
                                       dev)
-                alpha = torch.exp(log_alpha.detach())
-                q_l = q_step(nets, targ, q_opt, batch, alpha, cfg.gamma,
-                             gen)
-                pi_l, mean_logp = pi_step(nets, pi_opt, batch, alpha, gen)
-                ent = -mean_logp
-                if cfg.auto_alpha:
-                    alpha_step(log_alpha, alpha_opt, mean_logp,
-                               target_entropy)
-                polyak_targets(targ, nets, cfg.polyak)
+                losses = update(nets, targ, opts, log_alpha, batch, cfg,
+                                act_dim, gen)
+                q_l, pi_l, ent = (losses[k] for k in ("LossQ", "LossPi",
+                                                      "Entropy"))
 
         if (t + 1) % cfg.steps_per_epoch == 0:
             logger.log_tabular("Epoch", (t + 1) // cfg.steps_per_epoch)

@@ -37,11 +37,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import pathlib
-import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -176,44 +173,6 @@ def _rank_main(args) -> None:
         dist.destroy_process_group()
 
 
-def spawn_ranks(args, argv: list[str]) -> dict:
-    """Start ``args.ranks`` rank processes on a free local port, wait for
-    them (at most ``TIMEOUT_S``), return rank 0's report; a rank that fails
-    raises, and every process is stopped either way."""
-    from ..parallel.mesh import _free_port
-    root = pathlib.Path(__file__).resolve().parents[2]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(root)] + [p for p in [env.get("PYTHONPATH")] if p])
-    env.setdefault("OMP_NUM_THREADS", "1")
-    port = _free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        report = os.path.join(tmp, "rank0.json")
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "ldpc_tpu_torch.scripts.giant_code",
-             *argv, "--rank", str(r), "--port", str(port), "--report",
-             report], env=env, cwd=root, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for r in range(args.ranks)]
-        failed = []
-        deadline = time.monotonic() + TIMEOUT_S
-        try:
-            for r, p in enumerate(procs):
-                _, err = p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic()))
-                if p.returncode != 0:
-                    failed.append(f"rank {r} exited {p.returncode}:\n"
-                                  f"{err[-3000:]}")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if failed:
-            raise RuntimeError("giant_code ranks failed:\n" +
-                               "\n".join(failed))
-        return json.loads(pathlib.Path(report).read_text())
-
-
 def main(argv: list[str] | None = None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _args(argv)
@@ -222,7 +181,12 @@ def main(argv: list[str] | None = None) -> dict:
         return {}
     dev = study_device()
     t0 = time.perf_counter()
-    report = spawn_ranks(args, argv)
+    from ..parallel.mesh import spawn_module_ranks
+    report = spawn_module_ranks(        # rank 0 alone writes the report
+        "ldpc_tpu_torch.scripts.giant_code",
+        lambda r, port, path: [*argv, "--rank", str(r), "--port", str(port),
+                               "--report", path],
+        args.ranks, TIMEOUT_S, one_thread=True)[0]
     results = {"ranks": args.ranks, "backend": "gloo",
                "block_rows": args.block_rows, "block_cols": args.block_cols,
                "max_iters": args.iters, "snr_db": args.snr_db, **stamp(dev),

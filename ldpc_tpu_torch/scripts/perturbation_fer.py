@@ -24,7 +24,7 @@ On the card::
 CPU smoke::
 
     LDPC_TPU_PLATFORM=cpu python -m ldpc_tpu_torch.scripts.perturbation_fer \\
-        --words 4 --max-iters 5 --snr 3.6 --variants 2 \\
+        --words 4 --max-iters 5 --snr 3.6 \\
         --out /tmp/perturbation_fer
 """
 
@@ -59,9 +59,6 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--snr", type=float, nargs="+",
                     default=[3.2, 3.4, 3.6, 3.8])
     ap.add_argument("--max-iters", type=int, default=50)
-    ap.add_argument("--variants", type=int, default=None,
-                    help="the intact code and the first N-1 zeroed "
-                         "variants only (smoke runs); default all 33")
     ap.add_argument("--out", default=None,
                     help="artifact base path (default: "
                          "ldpc_tpu_torch/data/perturbation_fer on the card)")
@@ -72,7 +69,6 @@ def main(argv: list[str] | None = None) -> dict:
     base = DecodePlan.from_code(code)
     variants = [("intact", code)] + [
         (f"zero_{mb}_{nb}", v) for mb, nb, v in zeroed_circulant_suite(code)]
-    variants = variants[:args.variants]
 
     results: dict = {"words": args.words, "snr_points": args.snr,
                      "max_iters": args.max_iters, **stamp(dev),

@@ -345,6 +345,25 @@ def test_env_multi_point_floor_penalty_and_anneal_scale():
         mk(floor_penalty=(1.0, 2.0), floor_snr_index=(0, 1, 2))
 
 
+@pytest.mark.parametrize("index,want", [
+    (0, [0]), (2, [2]), (-1, [2]), (-3, [0]), ((1, -1), [1, 2]),
+    (3, None), (-4, None), ((0, 3), None)])
+def test_env_floor_snr_index_must_name_a_point(index, want):
+    """An index counts from the end when negative; one that names no SNR
+    point raises in the constructor, not at the first legal step."""
+    def mk():
+        return LdpcCodeSearchEnv(
+            code=wifi_code(), snr_points=(1.0, 4.0, 4.5),
+            num_transmissions=4, num_iterations=6, floor_penalty=10.0,
+            floor_snr_index=index, device="cpu")
+
+    if want is None:
+        with pytest.raises(ValueError, match="out of range"):
+            mk()
+    else:
+        assert mk().floor_snr_indices.tolist() == want
+
+
 def test_env_staged_dynamic_decode_identical():
     """phase1_iterations gives IDENTICAL step results to the single-pass
     env (the over-25% branch: most words fail phase 1 at 2.0 dB)."""

@@ -89,6 +89,13 @@ def test_quantized_ber_cpu_smoke(tmp_path):
             "faster_at_operating_point"} <= set(out)
     for pts in doc["stores"].values():
         assert [p["snr_db"] for p in pts] == [3.0, 3.4]
+        for p in pts:
+            assert len(p["trial_s"]) == quantized_ber.TRIALS
+            assert p["decode_s"] == min(p["trial_s"])
+            first = p["first_call"]
+            assert first["s"] > 0 and first["new_segments"] == 0
+            assert len(first["branches"]) == 1
+            assert set(first["branches"]) <= {"none", "few", "many"}
 
 
 def _quantized_cases():
@@ -173,10 +180,11 @@ def test_sched_ab_verdict_on_the_jax_artifact():
 
 def test_perturbation_fer_cpu_smoke(tmp_path):
     out = perturbation_fer.main(["--words", "4", "--max-iters", "5",
-                                 "--snr", "3.6", "3.8", "--variants", "3",
+                                 "--snr", "3.6", "3.8",
                                  "--out", str(tmp_path / "p")])
     doc = _written(tmp_path / "p")
-    assert list(doc["variants"]) == ["intact", "zero_0_0", "zero_0_1"]
+    assert list(doc["variants"]) == list(
+        _artifact("perturbation_fer")["variants"])
     assert doc["route"] == "ops/dynamic.py"
     for row in out["variants"].values():
         assert list(row) == ["3.6", "3.8"]
@@ -195,7 +203,7 @@ def test_perturbation_fer_suite_matches_the_jax_artifact_keys():
 
 def test_studies_refuse_to_write_from_the_cpu_without_out(tmp_path):
     out = perturbation_fer.main(["--words", "2", "--max-iters", "2",
-                                 "--snr", "3.8", "--variants", "1"])
+                                 "--snr", "3.8"])
     assert out["variants"]["intact"]["3.8"]["frames"] in (0, 1, 2)
     assert not (tmp_path / "data").exists()
 
