@@ -206,7 +206,26 @@ no result line:
            unsharded decoder exact): each study's seconds and launches, and every FER point in the band of the JAX
            package's artifact (the two Wilson intervals overlap at the z
            that holds the study's points at 95% together).
-18. the kernels line, the card line again, and the result line.
+18. search the code-search scripts (ldpc_tpu_torch/scripts/), each into a
+           temporary directory: chain_scoreboard at its defaults (near-earth
+           and the five carried chain codes: 512 transmissions x 5 points x
+           5 seeds of reward, 262,144 floor words at 3.8 dB), each code's
+           FER in the band of docs/chain_scoreboard.json (phase 17's
+           family z) and its reward within Student's t of the two 5-seed
+           spreads (CHAIN_REWARD_T); discovered_code_waterfall (the carried
+           s47 against near-earth, 16,384 words a point, 3.0-4.0 dB), every
+           FER point in the band of docs/discovered_code.json;
+           staging_grid (4 cascades, 32,768 words at 3.4 dB), every call
+           word-exact to a straight decode; rollout_throughput (1, 4, 8
+           envs, sequential and fused), env steps/s; reward_investigation
+           (802.11n, 2 x 24 sweeps), its reward noise against
+           docs/reward_investigation.json's; rl_search_wide on near-earth at
+           full width for 2 epochs of 8 steps with one floor term, then on
+           its steps.tsv floor_topk_select and rl_search_wide --select-only
+           at top-K 2 (the rerun's selection equal) and floor_search_analysis;
+           reward_floor_frontier and chain_figure on those artifacts.  Each
+           script's seconds and launches by store.
+19. the kernels line, the card line again, and the result line.
 
 Every driven path (the main path, each evaluate run of phases 8 and 10,
 each near-earth path of phase 10, the split A/B, the giant path and the
@@ -214,8 +233,9 @@ dep_stride replay of phase 11, the microbench script of phase 12, the
 env paths (a), (c) and (d) of phase 13, the trainer's runs (a) and (d)
 of phase 14, the validation paths (c)-(f) of phase 15 that launch a
 kernel, the sharded paths (a), (b) (the two ranks' sharded parts,
-summed) and (c) of phase 16, and each study of phase 17 (b)) clears the
-launch counts just before it and reads them just after; a row of the kernels line gives the launches of
+summed) and (c) of phase 16, each study of phase 17 (b) and each script
+of phase 18) clears the launch counts just before it and reads them just
+after; a row of the kernels line gives the launches of
 the path meant to drive it (`path`, `launches`) and those of every path
 that ran it (`launches_by_path`), and the run fails if that path launched
 it no time.  Launches that compare a kernel with its plain version, or time
@@ -223,9 +243,10 @@ it, are counted on no path.
 
 Imports torch, numpy and ldpc_tpu_torch only; the machine with the card has
 no JAX.  Writes nothing but the kernel builds (ldpc_tpu_torch/_build/)
-and, in phases 14-17, the trainers' logs and checkpoints, the studies'
-artifacts and the post-mortem's plots under temporary directories that it
-removes; phase 16's two ranks are processes it starts and waits for.
+and, in phases 14-18, the trainers' logs and checkpoints, the studies'
+and the scripts' artifacts and the post-mortem's plots under temporary
+directories that it removes; phase 16's two ranks are processes it starts
+and waits for.
 """
 
 from __future__ import annotations
@@ -575,6 +596,54 @@ JAX_GIANT_FRAMES = {(z, layout): (0, 2 if layout == "1x8" else 4)
                     for z in (2048, 8192, 32768, 131072)
                     for layout in ("1x8", "2x4")}
 
+# Phase 18, the code-search scripts (ldpc_tpu_torch/scripts/), each at its
+# defaults but rl_search_wide: near-earth at the JAX defaults' width (5 SNR
+# points x 64 transmissions, 50 iterations) for 2 epochs of 8 steps with one
+# floor term, then the selection scripts at top-K 2 on its own steps.tsv.
+SEARCH_TOPK = 2
+SEARCH_RL_ARGS = ["--epochs", "2", "--steps", "8", "--floor-penalty", "30",
+                  "--floor-snr-index", "-1", "--floor-words", "16384",
+                  "--topk", str(SEARCH_TOPK)]
+B1_BF16 = ("min-sum", "bfloat16", "flooding", False)
+B1_F32 = ("min-sum", "float32", "flooding", False)
+# each script's driven path and the kernel variants it must launch (the
+# re-evaluations and the floors bf16; the code-search env f32)
+SEARCH_KEYS = {
+    "chain_scoreboard": [B1_BF16], "discovered_code_waterfall": [B1_BF16],
+    "staging_grid": [B1_BF16], "rollout_throughput": [B1_F32],
+    "reward_investigation": [B1_BF16], "rl_search_wide": [B1_F32, B1_BF16],
+    "floor_topk_select": [B1_BF16], "floor_search_analysis": [B1_BF16],
+    "rl_search_wide --select-only": [B1_BF16],
+    "reward_floor_frontier": [], "chain_figure": []}      # no decode
+SEARCH_PATHS = {name: f"search {name}" for name in SEARCH_KEYS}
+# docs/chain_scoreboard.json ("codes" -> name): reward_mean, reward_std
+# (np.std of 5 seeds' rewards), frame errors at 3.8 dB of 262,144 words.
+JAX_CHAIN_WORDS = 262144
+JAX_CHAIN = {
+    "near_earth": (0.805924898950624, 0.00042046674239947895, 0),
+    "s47": (0.8159607561817982, 0.001189194065690012, 0),
+    "boot_s52": (0.8201119782973837, 0.002378021857689831, 73),
+    "topk_r4": (0.8190032575126602, 0.005004156101827582, 65),
+    "floor2": (0.8178999812946678, 0.0024522341951844786, 26),
+    "floor2_late": (0.8091532835511419, 0.0006674427089558099, 7)}
+# A code's reward passes where |port - JAX| <= T * sqrt((s_port^2 + s_jax^2)
+# / (n - 1)), s the np.std (ddof 0) of n = 5 seeds' rewards each: the
+# standard error of the difference of the two means, and T Student's t of
+# 2 (n - 1) = 8 degrees of freedom at 1 - 0.025 / 6 (the 6 codes together
+# at 95%, Bonferroni), computed once with scipy.stats.t.ppf.
+CHAIN_REWARD_T = 3.4788791899651743
+# docs/discovered_code.json ("codes" -> code -> point "fer" x 16,384)
+JAX_WATERFALL_WORDS = 16384
+JAX_WATERFALL_FRAMES = {
+    "near_earth": {3.0: 14279, 3.2: 5445, 3.4: 369, 3.6: 2, 3.8: 0, 4.0: 0},
+    "discovered": {3.0: 6078, 3.2: 510, 3.4: 5, 3.6: 1, 3.8: 0, 4.0: 0}}
+# docs/reward_investigation.json ("mc_noise" -> transmissions): the mean and
+# np.std of 24 seeds' 802.11n rewards; the same test as the chain's, with
+# 2 (24 - 1) = 46 degrees of freedom and the 2 counts together at 95%.
+JAX_REWARD_NOISE = {"10": (0.7922879641249718, 0.0033297752640666987),
+                    "40": (0.7919894240598833, 0.001439110499195286)}
+REWARD_NOISE_SEEDS = 24
+REWARD_NOISE_T = 2.317152172150019
 # The bounds use the H100's peaks of ldpc_tpu_torch/utils/profiling.py:
 # operations over the float32 peak, which counts a fused multiply-add as 2
 # and every other float32 operation as 1, as the counts below do.
@@ -3358,6 +3427,168 @@ def phase_studies(dev) -> dict:
     return out
 
 
+def _reward_band(tag: str, name: str, got: tuple, ref: tuple, n: int,
+                 t: float) -> dict:
+    """``got``, ``ref``: (mean, np.std) of n seeds' rewards each; fails
+    unless |difference| <= t x the standard error of the difference."""
+    tol = t * ((got[1] ** 2 + ref[1] ** 2) / (n - 1)) ** 0.5
+    diff = got[0] - ref[0]
+    log(tag, f"{name}: reward {got[0]:.5f} ± {got[1]:.5f} against JAX "
+        f"{ref[0]:.5f} ± {ref[1]:.5f}: difference {diff:+.5f}, tolerance "
+        f"{tol:.5f}")
+    if abs(diff) > tol:
+        raise AssertionError(f"{name}: reward {got[0]} vs JAX {ref[0]} "
+                             f"(tolerance {tol})")
+    return {"diff": diff, "tolerance": tol}
+
+
+def phase_search(dev) -> dict:
+    """The code-search scripts at their defaults (rl_search_wide short),
+    each writing into a temporary directory: the chain's FERs and rewards,
+    the discovered code's waterfall and the 802.11n reward noise in the JAX
+    artifacts' bands, the staging grid word-exact, each script's
+    launches."""
+    import tempfile
+    from ldpc_tpu_torch.scripts import (chain_figure, chain_scoreboard,
+                                        discovered_code_waterfall,
+                                        floor_search_analysis,
+                                        floor_topk_select,
+                                        reward_floor_frontier,
+                                        reward_investigation, rl_search_wide,
+                                        rollout_throughput, staging_grid)
+    tag = "18search"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = f"{tmp}/exp"
+        tsv = f"{exp}/search_wide/search_wide_s31/steps.tsv"
+        topk = ["--topk", str(SEARCH_TOPK)]
+        runs = [
+            ("chain_scoreboard", chain_scoreboard, []),
+            ("discovered_code_waterfall", discovered_code_waterfall,
+             ["--save-dir", f"{tmp}/instances"]),
+            ("staging_grid", staging_grid, []),
+            ("rollout_throughput", rollout_throughput, []),
+            ("reward_investigation", reward_investigation, []),
+            ("rl_search_wide", rl_search_wide,
+             SEARCH_RL_ARGS + ["--data-dir", exp]),
+            ("floor_topk_select", floor_topk_select,
+             ["--steps-tsv", tsv] + topk),
+            ("floor_search_analysis", floor_search_analysis,
+             ["--steps-tsv", tsv]),
+            ("rl_search_wide --select-only", rl_search_wide,
+             SEARCH_RL_ARGS + ["--data-dir", exp, "--select-only"]),
+            ("reward_floor_frontier", reward_floor_frontier,
+             ["--selections", f"{tmp}/floor_topk_select.json",
+              f"{tmp}/rl_search_wide.json",
+              "--scoreboard", f"{tmp}/chain_scoreboard.json"]),
+            ("chain_figure", chain_figure,
+             ["--series", f"{tmp}/discovered_code_waterfall.json"]),
+        ]
+        for name, mod, argv in runs:
+            base = f"{tmp}/{name.split()[0]}" + ("_select" if " " in name
+                                                 else "")
+            clear_launches()
+            t0 = time.perf_counter()
+            res = mod.main(argv + ["--out", base])
+            sync(dev)
+            dt = time.perf_counter() - t0
+            got = _val_record(SEARCH_PATHS[name], SEARCH_KEYS[name])
+            out[name] = {"seconds": dt, "launches": got, "result": res}
+            log(tag, f"{name}: {dt:.2f} s, launches {got}")
+
+        r = out["chain_scoreboard"]["result"]
+        if list(r["codes"]) != list(JAX_CHAIN):
+            raise AssertionError(f"chain_scoreboard codes {list(r['codes'])}")
+        pts = [(f"{n} {r['floor_snr_db']}", c["frame_errors"], c["words"],
+                JAX_CHAIN[n][2], JAX_CHAIN_WORDS)
+               for n, c in r["codes"].items()]
+        out["chain_scoreboard"]["band"] = _check_points(
+            tag, "chain_scoreboard FER", pts)
+        out["chain_scoreboard"]["rewards"] = {
+            n: _reward_band(tag, f"chain_scoreboard {n}",
+                            (c["reward_mean"], c["reward_std"]),
+                            JAX_CHAIN[n][:2], len(r["reeval"]["seeds"]),
+                            CHAIN_REWARD_T)
+            for n, c in r["codes"].items()}
+        log(tag, "chain_scoreboard order (penalized): " + ", ".join(
+            f"{n} {c['penalized']:.5f}" for n, c in sorted(
+                r["codes"].items(), key=lambda kv: -kv[1]["penalized"])))
+
+        r = out["discovered_code_waterfall"]["result"]
+        pts = [(f"{code} {p['snr_db']}", p["frame_errors"], p["words"],
+                JAX_WATERFALL_FRAMES[code][p["snr_db"]], JAX_WATERFALL_WORDS)
+               for code, row in r["codes"].items() for p in row]
+        out["discovered_code_waterfall"]["band"] = _check_points(
+            tag, "discovered_code_waterfall", pts)
+        log(tag, "discovered_code_waterfall verdicts " + ", ".join(
+            f"{v['snr_db']} {v['verdict']}"
+            for v in r["per_point_verdicts"]))
+
+        r = out["staging_grid"]["result"]
+        if not r["all_exact"]:
+            raise AssertionError(f"staging_grid: {r['configs']}")
+        log(tag, "staging_grid, every cascade word-exact to the straight "
+            "decode: " + ", ".join(
+                f"{c['phases']} {c['best_ms']:.3f} ms "
+                f"({c['mbit_s']:.1f} Mbit/s)" for c in r["configs"]))
+
+        r = out["rollout_throughput"]["result"]
+        log(tag, "rollout_throughput env steps/s: " + ", ".join(
+            f"{x['envs']} {x['mode']} {x['env_steps_per_s']:.1f} (legal "
+            f"{x['legal_fraction']:.3f})" for x in r["rows"]))
+        if not all(x["env_steps_per_s"] > 0 for x in r["rows"]):
+            raise AssertionError(f"rollout_throughput: {r['rows']}")
+
+        r = out["reward_investigation"]["result"]
+        if r["seeds"] != REWARD_NOISE_SEEDS:
+            raise AssertionError(f"reward_investigation seeds {r['seeds']}")
+        out["reward_investigation"]["band"] = {
+            t: _reward_band(tag, f"reward_investigation 802.11n {t} tx",
+                            (r["mc_noise"][t]["mean"],
+                             r["mc_noise"][t]["std"]), ref,
+                            REWARD_NOISE_SEEDS, REWARD_NOISE_T)
+            for t, ref in JAX_REWARD_NOISE.items()}
+        nb = r["near_earth_baselines"]
+        log(tag, f"reward_investigation: fit kept {r['fit']['kept']} of "
+            f"{r['fit']['points']}, reward {r['fit']['reward']:.4f}; sigma "
+            f"{r['sigma']['realized_mean']:.4f} realized against "
+            f"{r['sigma']['nominal_mean']:.4f}; near-earth "
+            f"{nb['reward_3p0_3p8']:.4f} / {nb['reward_3p0_3p4']:.4f}; "
+            f"degenerate {r['degenerate']}")
+
+        r = out["rl_search_wide"]["result"]
+        again = out["rl_search_wide --select-only"]["result"]
+        cands = r["selection"]["candidates"]
+        if not cands or any(len(c["floors"]) != 1 for c in cands) or \
+                again["selection"]["candidates"] != cands:
+            raise AssertionError(f"rl_search_wide selection: {cands} / "
+                                 f"{again['selection']['candidates']}")
+        log(tag, f"rl_search_wide: {r['epochs']} epochs, train "
+            f"{r['train_seconds']:.2f} s, selection "
+            f"{r['select_seconds']:.2f} s, {len(cands)} candidates (the "
+            f"--select-only rerun equal), best penalized "
+            f"{r['best_found']['penalized']:.5f}, start code "
+            f"{r['start_code']['penalized']:.5f}")
+        for name in ("floor_topk_select", "floor_search_analysis"):
+            res = out[name]["result"]
+            n = len(res.get("candidates", res.get("codes")))
+            log(tag, f"{name}: {n} rows")
+            if n == 0:
+                raise AssertionError(f"{name}: nothing scored")
+        r = out["reward_floor_frontier"]["result"]
+        pooled = sum(map(len, r["selections"].values()))
+        log(tag, f"reward_floor_frontier: {pooled} candidates, "
+            f"{len(r['chain'])} chain members, frontier {r['frontier']}")
+        if len(r["chain"]) != len(JAX_CHAIN) or not r["frontier"]:
+            raise AssertionError(f"reward_floor_frontier: {r}")
+        r = out["chain_figure"]["result"]
+        if len(r["series"]) != 2:
+            raise AssertionError(f"chain_figure: {r['series']}")
+    log(tag, "seconds by script: " + ", ".join(
+        f"{k} {v['seconds']:.1f}" for k, v in out.items()))
+    return out
+
+
 def launch_row(path: str, k) -> dict:
     """A row's launches: on the path meant to drive it, and on every path
     that ran it."""
@@ -3417,6 +3648,7 @@ def run(dev: torch.device) -> dict:
     parallel = phase_parallel(dev, main, trainer["steps_tsv"])
     continuous = phase_continuous(dev)
     studies = phase_studies(dev)
+    search = phase_search(dev)
     st = kern["stage1"]
     rows = []
     for (kind, store), v in variants.items():
@@ -3485,7 +3717,7 @@ def run(dev: torch.device) -> dict:
     return {"smi": smi, "kernels": kernels, "main": main, "split": split,
             "microbench": mb, "env": env, "trainer": trainer,
             "validation": validation, "parallel": parallel,
-            "continuous": continuous, "studies": studies}
+            "continuous": continuous, "studies": studies, "search": search}
 
 
 def main() -> int:

@@ -36,6 +36,14 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ldpc_tpu_torch"
 FORBIDDEN = ("jax", "ldpc_tpu")
+# the code-search scripts and a command line each accepts
+SEARCH_SCRIPTS = {
+    "chain_scoreboard": [], "discovered_code_waterfall": [],
+    "floor_topk_select": ["--steps-tsv", "steps.tsv"],
+    "floor_search_analysis": ["--steps-tsv", "steps.tsv"],
+    "rl_search_wide": [], "rollout_throughput": [], "staging_grid": [],
+    "reward_investigation": [], "reward_floor_frontier": [],
+    "chain_figure": []}
 
 
 def _port_files():
@@ -111,7 +119,8 @@ def test_port_and_chip_smoke_import_without_jax():
               "ldpc_tpu_torch.scripts.random_codeword_check",
               "ldpc_tpu_torch.scripts.error_floor",
               "ldpc_tpu_torch.scripts.wifi_waterfall",
-              "ldpc_tpu_torch.scripts.sort_ab"):
+              "ldpc_tpu_torch.scripts.sort_ab",
+              *(f"ldpc_tpu_torch.scripts.{name}" for name in SEARCH_SCRIPTS)):
         assert m in res["modules"]
 
 
@@ -199,6 +208,20 @@ def test_validation_entry_points_raise_without_a_card(monkeypatch,
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("name", SEARCH_SCRIPTS)
+def test_search_scripts_raise_without_a_card(monkeypatch, tmp_path, name):
+    """Each code-search script runs on the card unless asked for the CPU,
+    and raises before it reads or writes anything."""
+    monkeypatch.delenv("LDPC_TPU_PLATFORM", raising=False)
+    if torch.cuda.is_available():
+        return
+    import importlib
+    mod = importlib.import_module(f"ldpc_tpu_torch.scripts.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(SEARCH_SCRIPTS[name] + ["--out", str(tmp_path / "art")])
     assert not list(tmp_path.iterdir())
 
 
