@@ -75,7 +75,9 @@ no result line:
 11. split  the phase-split pair (B7, csrc/split.cu) and the barrier probe
            (B8): (a) ldpc_tpu_torch.scripts.split_ab at the JAX package's
            protocol (near-earth, 16,384 words, 10 iterations, 3.4 dB, 4
-           trials), bf16 then f32, word-exact to the fused kernel; (b) the
+           trials), bf16 then f32, word-exact to the fused kernel, each
+           summary stamped with kernel_hash and split_kernel_hash, the
+           latter over csrc/split.cu and ops/cuda_split.py; (b) the
            split kernels against their plain version and the fused kernel,
            near-earth 2,048 words at 3.0 and 3.4 dB, 50 iterations, bf16 and
            f32, every word; (c) the main path's stage-1 shape (32,768 words,
@@ -289,6 +291,7 @@ from ldpc_tpu_torch.sim.stats import BerStatistics, wilson_interval
 from ldpc_tpu_torch.utils.device import device_info
 from ldpc_tpu_torch.utils.profiling import (F32_OPS_PER_S, HBM_BYTES_PER_S,
                                             smi_query, time_ms, timed_once)
+from ldpc_tpu_torch.utils.provenance import SPLIT_SOURCES, kernel_source_hash
 
 T0 = time.perf_counter()
 
@@ -1582,6 +1585,7 @@ def phase_split(dev, code, gen) -> dict:
     bounds.  Returns the kernels line's split rows and the numbers."""
     out = {"rows": {}}
     # (a) the A/B script at the JAX protocol, bf16 then f32
+    stamp = (kernel_source_hash(), kernel_source_hash(sources=SPLIT_SOURCES))
     clear_launches()
     for store in SPLIT_STORES:
         summ = split_ab.main(SPLIT_AB_ARGS + ["--store", store])
@@ -1592,6 +1596,9 @@ def phase_split(dev, code, gen) -> dict:
             f"{summ['split_host_reads']}")
         if not summ["word_exact"]:
             raise AssertionError(f"split_ab {store}: not word-exact")
+        if (summ.get("kernel_hash"), summ.get("split_kernel_hash")) != stamp:
+            raise AssertionError(f"split_ab {store}: stamp is not the "
+                                 f"sources' {stamp}")
         out[f"ab_{store}"] = summ
     got = record_path(SPLIT_PATH)
     for store in SPLIT_STORES:

@@ -13,11 +13,17 @@ from .io import (bits_to_hex, code_from_dict, code_hex_name, code_to_dict,
                  read_dense_generator, read_qc_generator_rows,
                  read_qc_parity, save_code_instance, save_code_json)
 from .perturb import write_suite, zero_circulant, zeroed_circulant_suite
-from .qc import QCCode
+from .qc import QCCode, edges_by_block_col, edges_by_block_row
 from .synthetic import synthetic_qc_code
-from .wifi import wifi_code, wifi_rates
+from .wifi import (WIFI_1944_81_RATE_1_2, WIFI_1944_81_RATE_2_3,
+                   WIFI_1944_81_RATE_3_4, WIFI_1944_81_RATE_5_6,
+                   from_prototype, wifi_code, wifi_rates)
 
-__all__ = ["QCCode", "near_earth_code", "wifi_code", "wifi_rates",
+__all__ = ["QCCode", "edges_by_block_col", "edges_by_block_row",
+           "near_earth_code", "wifi_code", "wifi_rates",
+           "WIFI_1944_81_RATE_1_2", "WIFI_1944_81_RATE_2_3",
+           "WIFI_1944_81_RATE_3_4", "WIFI_1944_81_RATE_5_6",
+           "from_prototype",
            "code_from_dict", "code_to_dict", "load_code_json",
            "save_code_json", "synthetic_qc_code", "compress", "uncompress",
            "observation_bytes", "hex_to_bits", "bits_to_hex",

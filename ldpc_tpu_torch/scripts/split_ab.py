@@ -7,7 +7,10 @@ pair of ``ops/cuda_split.py``.  One process, word-exactness asserted on a
 shared input before any timing (a mismatch exits non-zero), then the two
 timed on distinct inputs, interleaved across trials so that drift cancels.
 It prints one JSON summary line (best and median wall ms of each, ending in
-a synchronise) and writes it to ``--out`` only when given one.
+a synchronise, stamped with ``kernel_hash`` and ``split_kernel_hash``, the
+hashes of the decode path's sources and of the split pair's,
+``csrc/split.cu`` and ``ops/cuda_split.py``) and writes it to ``--out``
+only when given one.
 
 On the card::
 
@@ -33,6 +36,7 @@ from ..ops.cuda_split import make_split_sweep_decoder
 from ..ops.cuda_static import make_static_sweep_decoder
 from ..sim.evaluate import transmit
 from ..utils.device import resolve_device
+from ..utils.provenance import SPLIT_SOURCES, kernel_source_hash
 
 
 def _llr(code, batch: int, snr: float, seed: int, dev) -> torch.Tensor:
@@ -102,6 +106,8 @@ def main(argv: list[str] | None = None) -> dict:
                     "trials": args.trials},
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
+        "kernel_hash": kernel_source_hash(),
+        "split_kernel_hash": kernel_source_hash(sources=SPLIT_SOURCES),
         "word_exact": exact,
         "best_ms": {n: min(v) * 1e3 for n, v in times.items()},
         "median_ms": {n: float(np.median(v)) * 1e3
